@@ -1,0 +1,53 @@
+"""Top-k primitives, smallest score first (port of zvdb_tpu/ops/topk.py).
+
+Convention everywhere: scores are "smaller is better" surrogates (see
+ops/distance.py); invalid entries carry +inf and ids carry -1.
+
+`lax.top_k` takes equal scores in position order. `torch.topk` promises no
+order and may pick any of several entries tied at the k-th score, so the
+selection is repaired here: rows with such a finite tie are re-selected by
+a stable sort, and the result is ordered by (score, position). Among +inf
+entries the pick stays torch's; every caller maps those to id -1.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def smallest_k_dense(scores: torch.Tensor, k: int):
+    """k smallest over the last axis of a dense score matrix -> (scores, indices)."""
+    if k > scores.shape[-1]:
+        raise ValueError(f"k={k} exceeds the last axis ({scores.shape[-1]})")
+    lead = scores.shape[:-1]
+    flat = scores.reshape(lead.numel(), scores.shape[-1])
+    vals, pos = torch.topk(flat, k, dim=-1, largest=False, sorted=False)
+    if k:
+        kth = vals.amax(dim=-1, keepdim=True)
+        tied = (((flat == kth).sum(-1) > (vals == kth).sum(-1))
+                & torch.isfinite(kth[:, 0])).nonzero()[:, 0]
+        if tied.numel():   # a boundary tie: take the lowest positions, as lax.top_k does
+            sv, sp = torch.sort(flat[tied], dim=-1, stable=True)
+            vals[tied], pos[tied] = sv[:, :k], sp[:, :k]
+    pos, perm = torch.sort(pos, dim=-1)
+    vals = torch.gather(vals, -1, perm)
+    vals, perm = torch.sort(vals, dim=-1, stable=True)
+    pos = torch.gather(pos, -1, perm)
+    return vals.reshape(*lead, k), pos.reshape(*lead, k)
+
+
+def smallest_k(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Per-row k smallest of (scores [..., C], ids [..., C]) -> ([..., k], [..., k]).
+
+    Invalid slots (+inf / id -1) sort last; a +inf score always has id -1.
+    """
+    out_scores, pos = smallest_k_dense(scores, k)
+    out_ids = torch.gather(ids, -1, pos)
+    out_ids = torch.where(torch.isinf(out_scores), -1, out_ids)
+    return out_scores, out_ids
+
+
+def merge_topk(scores_a, ids_a, scores_b, ids_b, k: int):
+    """Merge two per-row top-k lists into one top-k list (no dedupe)."""
+    s = torch.cat([scores_a, scores_b], dim=-1)
+    i = torch.cat([ids_a, ids_b], dim=-1)
+    return smallest_k(s, i, k)
