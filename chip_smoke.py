@@ -5,19 +5,35 @@
     python3 chip_smoke.py --rehearse   # tiny sizes on the CPU (plain versions, no kernel)
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. device   - the card's name, count and power limit (nvidia-smi);
-  2. build    - nvcc builds zvdb_tpu_torch/csrc/flat_scan.cu for sm_90a;
-  3. compare  - the kernel against its plain PyTorch version over a grid of
-                shapes, every precision and metric, tie-aware;
-  4. main     - the flat_1m_pallas configuration (1M x 128d synthetic SIFT
-                stand-in, rerank=4, scan="pallas", l_bins=1024) searched in
-                batches of 2048 through the kernel, recall@10 against the
-                port's exact f32 search, launch counts read; then the
-                single-pass kernel path (rerank=0, precision="high");
-  5. server   - a SearchServer over that index answers 8 threads' requests
-                with the batched search's ids;
-  6. times    - kernel, plain version, torch.matmul yardstick, bound, QPS of
-                search and of the server, peak device memory.
+  1. device     - the card's name, count and power limit (nvidia-smi);
+  2. build      - nvcc builds zvdb_tpu_torch/csrc/flat_scan.cu and
+                  csrc/pq_scan.cu for sm_90a, both at once;
+  3. compare    - each kernel against its plain PyTorch version: flat_scan
+                  over a grid of shapes, every precision and metric,
+                  tie-aware; pq_scan over every precision x {l2, dot} x
+                  per_bin {1, 2} x {one pool, segment pools}, invalid rows,
+                  ragged N, B=1 and duplicated codes (int8: equal ids and
+                  scores; default/high: tie-aware);
+  4. main       - the flat_1m_pallas configuration (1M x 128d synthetic SIFT
+                  stand-in, rerank=4, scan="pallas", l_bins=1024) searched in
+                  batches of 2048 through the kernel, recall@10 against the
+                  port's exact f32 search, launch counts read; then the
+                  single-pass kernel path (rerank=0, precision="high");
+  5. server     - a SearchServer over that index answers 8 threads' requests
+                  with the batched search's ids;
+  6. times      - kernel, plain version, torch.matmul yardstick, bound, QPS of
+                  search and of the server, peak device memory;
+  7. pq main    - the pq_1m configuration (the same corpus and queries,
+                  PQConfig(dim=128) defaults: 4-bit n_sub=16 codes, int8 ADC
+                  scan through the kernel, int16 refine, rerank=12) built
+                  (points/s, peak device memory) and searched in batches of
+                  2048, launch counts and recall@10 read; the kernel on the
+                  main path's own inputs against its plain version;
+  8. pq server  - a SearchServer over the PQ index, as in phase 5;
+  9. pq times   - the PQ kernel in every precision, its plain version, the
+                  torch._int_mm and bf16 matmul yardsticks, bound, search and
+                  server QPS, and a torch.profiler breakdown of a search
+                  batch (kernel time by name, the device's busy share).
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -29,6 +45,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +56,7 @@ sys.path.insert(0, ROOT)
 K = 10
 BATCH = 2048
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core rate, operations/s
+PEAK_INT8 = 1979e12    # H100 SXM dense int8 tensor-core rate, operations/s
 PEAK_F32 = 67e12       # H100 SXM f32 rate outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 
@@ -100,16 +118,22 @@ def phase_device(ctx: Ctx):
 
 def phase_build(ctx: Ctx):
     from zvdb_tpu_torch.ops import flat_scan as FS
+    from zvdb_tpu_torch.ops import pq_scan as PS
 
     if ctx.rehearse:
         print("build: skipped (rehearsal)")
         return
-    FS.build()
-    info = FS.build_info
-    ctx.report("build seconds", round(info["seconds"], 2))
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, started together
+        for fut in [pool.submit(m.build) for m in (FS, PS)]:
+            fut.result()
+    ctx.report("build seconds (both kernels, in parallel)", round(time.perf_counter() - t0, 2))
+    for mod in (FS, PS):
+        info = mod.build_info
+        print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("  ptxas:", line.strip())
 
 
 def _rounded_dot64(q, rows, precision):
@@ -294,10 +318,10 @@ def phase_main(ctx: Ctx, x1, q1):
     if rec1 < 0.95:
         raise AssertionError(f"single-pass recall@10 {rec1} < 0.95")
     del single
-    return flp, ids, launches
+    return flp, ids, launches, gt
 
 
-def phase_server(ctx: Ctx, flp, q1, ids):
+def phase_server(ctx: Ctx, flp, q1, ids, label: str = ""):
     from zvdb_tpu_torch import SearchServer
 
     n_req = 400
@@ -331,14 +355,53 @@ def phase_server(ctx: Ctx, flp, q1, ids):
         got = results[r][1]
         want = ids[lo:lo + sizes[r]]
         bad += int((got != want).any(axis=1).sum())
-    ctx.report("server requests answered", f"{n_req} requests, {int(sizes.sum())} queries, "
-                                          f"{bad} queries differ from the batched search")
+    ctx.report(f"{label}server requests answered", f"{n_req} requests, {int(sizes.sum())} "
+               f"queries, {bad} queries differ from the batched search")
     if bad:
         raise AssertionError(f"{bad} server answers differ from the batched search")
 
 
-def phase_times(ctx: Ctx, flp, q1):
+def search_qps(ctx: Ctx, index, q1, runs: int = 3):
+    """End to end: search() over every query in batches, host clock ending
+    in a sync; one QPS per run."""
+    qps_runs = []
+    for _ in range(runs):
+        ctx.sync()
+        t0 = time.perf_counter()
+        for lo in range(0, q1.shape[0], ctx.batch):
+            index.search(q1[lo:lo + ctx.batch], K, approx=True)
+        ctx.sync()
+        qps_runs.append(q1.shape[0] / (time.perf_counter() - t0))
+    return qps_runs
+
+
+def server_qps(ctx: Ctx, index, q1):
+    """Every query through a SearchServer: 8 client threads, 16-query requests."""
     from zvdb_tpu_torch import SearchServer
+
+    chunk = 16
+    with SearchServer(index, k=K, max_batch=ctx.batch, max_wait_ms=2.0,
+                      search_kwargs={"approx": True}) as srv:
+        def worker(t, futs):
+            for lo in range(t * chunk, q1.shape[0], 8 * chunk):
+                futs.append(srv.submit(q1[lo:lo + chunk]))
+
+        ctx.sync()
+        t0 = time.perf_counter()
+        all_futs = [[] for _ in range(8)]
+        threads = [threading.Thread(target=worker, args=(t, all_futs[t])) for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        for futs in all_futs:
+            for fut in futs:
+                fut.result(timeout=900)
+        ctx.sync()
+        return q1.shape[0] / (time.perf_counter() - t0)
+
+
+def phase_times(ctx: Ctx, flp, q1):
     from zvdb_tpu_torch.ops import distance as D
     from zvdb_tpu_torch.ops import flat_scan as FS
 
@@ -387,43 +450,304 @@ def phase_times(ctx: Ctx, flp, q1):
     ctx.report("bound ms (high, 3x bf16 ops)", 3 * bound_ops)
     ctx.report("bound ms (highest, f32 ops / 67 TFLOP/s)", ops / PEAK_F32 * 1e3)
 
-    # end-to-end: search() over every query, host clock ending in a sync
-    qps_runs = []
-    for _ in range(3):
-        ctx.sync()
-        t0 = time.perf_counter()
-        for lo in range(0, q1.shape[0], ctx.batch):
-            flp.search(q1[lo:lo + ctx.batch], K, approx=True)
-        ctx.sync()
-        qps_runs.append(q1.shape[0] / (time.perf_counter() - t0))
-    ctx.report("search QPS (batches of 2048, 3 runs)", qps_runs)
-
-    chunk = 16
-    with SearchServer(flp, k=K, max_batch=ctx.batch, max_wait_ms=2.0,
-                      search_kwargs={"approx": True}) as srv:
-        def worker(t, futs):
-            for lo in range(t * chunk, q1.shape[0], 8 * chunk):
-                futs.append(srv.submit(q1[lo:lo + chunk]))
-
-        ctx.sync()
-        t0 = time.perf_counter()
-        all_futs = [[] for _ in range(8)]
-        threads = [threading.Thread(target=worker, args=(t, all_futs[t])) for t in range(8)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        for futs in all_futs:
-            for fut in futs:
-                fut.result(timeout=900)
-        ctx.sync()
-        server_qps = q1.shape[0] / (time.perf_counter() - t0)
-    ctx.report("server QPS (8 threads, requests of 16 queries)", server_qps)
+    ctx.report("search QPS (batches of 2048, 3 runs)", search_qps(ctx, flp, q1))
+    ctx.report("server QPS (8 threads, requests of 16 queries)", server_qps(ctx, flp, q1))
     if dev.type == "cuda":
         ctx.report("peak device memory GB (max_memory_allocated)",
                    torch.cuda.max_memory_allocated() / 1e9)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 max_abs_err=err)
+
+
+def pq_inputs(rng, b, n, n_sub, metric, dev, invalid_every=0, dup_rows=0):
+    """A table of ADC scale, random nibble codes [S/2, N] and 'decoded
+    norms'; dup_rows > 0 repeats the first dup_rows rows through the corpus."""
+    lut = rng.standard_normal((b, n_sub, 16)).astype(np.float32)
+    codes = rng.integers(0, 256, (n_sub // 2, n), dtype=np.uint8)
+    norms = (rng.random(n) * n_sub).astype(np.float32) if metric == "l2" \
+        else np.zeros(n, np.float32)
+    if dup_rows:
+        codes = np.tile(codes[:, :dup_rows], (1, -(-n // dup_rows)))[:, :n].copy()
+        norms = np.tile(norms[:dup_rows], -(-n // dup_rows))[:n].copy()
+    if invalid_every:
+        norms[::invalid_every] = np.inf
+    return tuple(torch.from_numpy(a).to(dev) for a in (lut, codes, norms))
+
+
+def check_pq_bins(lut, codes_t, norms, l_bins, chunk, metric, precision, per_bin, seg_rows,
+                  ks, ki, ps, pi, label):
+    """Agreement of kernel bins (ks, ki) with plain bins (ps, pi).
+
+    "int8": ids and scores equal (integer sums, the same float steps).
+    "default"/"high": tie-aware. The same empty bins; scores within 1e-5 of
+    the score scale (the larger of the largest |plain score| and twice the
+    largest sum of |table| entries: the two sum in other orders); each kernel
+    id on a valid row of its own bin and segment, its score recomputed in f64
+    from the rounded table within that tolerance; where a kernel id differs
+    from the plain one, the two scores tie within it. Returns the largest
+    |kernel - plain|."""
+    from zvdb_tpu_torch.ops import pq_scan as PS
+    from zvdb_tpu_torch.ops.pq import unpack_nibbles
+
+    if precision == "int8":
+        if not torch.equal(ki, pi):
+            raise AssertionError(f"{label}: {int((ki != pi).sum())} ids differ from plain")
+        if not torch.equal(ks, ps):
+            raise AssertionError(f"{label}: {int((ks != ps).sum())} scores differ from plain")
+        return 0.0
+    b, n_sub, _ = lut.shape
+    n = codes_t.shape[1]
+    f = 2.0 if metric == "l2" else 1.0
+    if not torch.equal(ki < 0, pi < 0):
+        raise AssertionError(f"{label}: empty bins differ ({int(((ki < 0) != (pi < 0)).sum())})")
+    fin = pi >= 0
+    if not bool(torch.isinf(ks[~fin]).all()):
+        raise AssertionError(f"{label}: an empty bin has a finite score")
+    scale = max(float(ps[fin].abs().max()) if bool(fin.any()) else 1.0,
+                2.0 * float(lut.abs().amax(-1).sum(-1).max()))
+    tol = 1e-5 * scale
+    diff = (ks - ps).abs()[fin]
+    if bool((diff > tol).any()):
+        raise AssertionError(f"{label}: bin scores differ by up to {float(diff.max())}")
+    flip = fin & (ki != pi)
+    if bool(((ks - ps).abs()[flip] > tol).any()):
+        raise AssertionError(f"{label}: an id differs from plain without a tie")
+    _, seg_len = PS.segments(n, chunk, seg_rows)
+    col = torch.arange(ki.shape[1], device=ki.device)
+    ids = ki.long()
+    bad = (ids % l_bins != col % l_bins) | (ids // seg_len != col // (per_bin * l_bins)) | (ids >= n)
+    if bool(bad[fin].any()):
+        raise AssertionError(f"{label}: an id lies outside its bin or segment")
+    if not bool(torch.isfinite(norms[ids[fin]]).all()):
+        raise AssertionError(f"{label}: an id names an invalid row")
+    hi = lut.to(torch.bfloat16).float()
+    planes = [hi] if precision == "default" else [hi, (lut - hi).to(torch.bfloat16).float()]
+    table = sum(p.double() for p in planes).reshape(b, n_sub * 16)
+    codes = unpack_nibbles(codes_t.T, n_sub).long()                    # [N, S]
+    sub16 = torch.arange(n_sub, device=lut.device) * 16
+    step = max(1, (1 << 21) // (ki.shape[1] * n_sub))   # queries per f64 recheck
+    for lo in range(0, b, step):
+        idb = ids[lo:lo + step].clamp(min=0)
+        pos = (codes[idb] + sub16).reshape(idb.shape[0], -1)           # [b, W*S]
+        dots = torch.gather(table[lo:lo + step], 1, pos).reshape(*idb.shape, n_sub).sum(-1)
+        s64 = norms[idb].double() - f * dots
+        m = fin[lo:lo + step]
+        gap = (s64[m] - ks[lo:lo + step][m].double()).abs()
+        if bool((gap > tol).any()):
+            raise AssertionError(f"{label}: a chosen row's f64 score is {float(gap.max())} "
+                                 "from its bin score")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def compare_pq_case(ctx, label, lut, codes_t, norms, l_bins, chunk, metric, precision,
+                    per_bin, seg_rows):
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    args = (l_bins, chunk, metric, precision, per_bin, seg_rows)
+    ks, ki = PS.pq_scan_bins(lut, codes_t, norms, l_bins=l_bins, chunk=chunk, metric=metric,
+                             precision=precision, per_bin=per_bin, seg_rows=seg_rows)
+    ps, pi = PS._pq_scan_bins_plain(lut, codes_t, norms, *args)
+    ctx.sync()
+    err = check_pq_bins(lut, codes_t, norms, *args, ks, ki, ps, pi, label)
+    print(f"  compare {label}: ok, max |kernel - plain| = {err:.3g}", flush=True)
+    return err
+
+
+def phase_compare_pq(ctx: Ctx):
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    rng = np.random.default_rng(321)
+    dev = ctx.device
+    cases = []
+    for precision in ("int8", "default", "high"):
+        for metric in ("l2", "dot"):
+            for per_bin in (1, 2):
+                for seg_rows in (0, 2048):   # 2048: three segments of the 5000 rows
+                    cases.append((37, 5000, 16, 128, 512, metric, precision, per_bin, seg_rows, 7))
+    cases += [
+        (1, 3001, 16, 1024, 1024, "l2", "int8", 2, 0, 5),
+        (70, 4099, 32, 100, 400, "l2", "high", 2, 800, 9),   # 64 KB of table: > 48 KB smem
+        (9, 40, 16, 64, 64, "dot", "default", 2, 0, 0),      # N < L: empty bins
+    ]
+    if not ctx.rehearse:
+        for precision in ("int8", "default"):
+            cases.append((BATCH, 200_000, 16, 1024, 1024, "l2", precision, 2, 65536, 11))
+
+    # the tie rule: rows L..2L-1, 2L..3L-1, ... repeat rows 0..L-1, so every
+    # bin holds equal scores: the lowest row wins slot 1, the next slot 2
+    for precision in ("int8", "default", "high"):
+        lut, codes, norms = pq_inputs(rng, 65, 512, 16, "l2", dev, dup_rows=128)
+        _, ki = PS.pq_scan_bins(lut, codes, norms, l_bins=128, chunk=128, precision=precision,
+                                per_bin=2)
+        want = torch.arange(128, device=dev, dtype=torch.int32).expand(65, -1)
+        if not (torch.equal(ki[:, :128], want) and torch.equal(ki[:, 128:], want + 128)):
+            raise AssertionError(f"PQ tie rule broken ({precision})")
+    print("  compare PQ tie rule (duplicated codes, every precision, per_bin=2): ok", flush=True)
+    for b, n, n_sub, l_bins, chunk, metric, precision, per_bin, seg_rows, inv in cases:
+        lut, codes, norms = pq_inputs(rng, b, n, n_sub, metric, dev, invalid_every=inv)
+        label = (f"PQ B={b} N={n} S={n_sub} L={l_bins} {metric} {precision} "
+                 f"per_bin={per_bin} seg_rows={seg_rows}")
+        compare_pq_case(ctx, label, lut, codes, norms, l_bins, chunk, metric, precision,
+                        per_bin, seg_rows)
+
+
+def pq_config(ctx: Ctx):
+    from zvdb_tpu_torch import PQConfig
+
+    if ctx.rehearse:   # the CPU resolves scan="auto" to the decode scan
+        return PQConfig(dim=ctx.dim, scan="pallas", l_bins=ctx.l_bins)
+    return PQConfig(dim=ctx.dim)
+
+
+def phase_pq_main(ctx: Ctx, x1, q1, gt):
+    from zvdb_tpu_torch import PQFlatIndex
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.ops import distance as D
+    from zvdb_tpu_torch.ops import flat_scan as FS
+    from zvdb_tpu_torch.ops import pq as PQ
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    dev = ctx.device
+    cfg = pq_config(ctx)
+    ctx.report("pq_1m config", cfg)
+    if cfg.scan != "pallas":
+        raise AssertionError(f"PQConfig resolved scan={cfg.scan!r}, not the fused kernel")
+    n_batches = -(-q1.shape[0] // ctx.batch)
+    xd = torch.from_numpy(x1).to(dev)
+    warm = PQFlatIndex(cfg, device=dev)   # first use of every op on the card
+    warm.build(xd)
+    del warm
+    ctx.sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    FS.flat_scan_bins.launches = 0
+    PS.pq_scan_bins.launches = 0
+    build_pps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        idx = PQFlatIndex(cfg, device=dev)
+        idx.build(xd)
+        ctx.sync()
+        build_pps.append(ctx.n / (time.perf_counter() - t0))
+    ids = batched_ids(ctx, idx, q1, approx=True)
+    ctx.sync()
+    launches, flat_launches = PS.pq_scan_bins.launches, FS.flat_scan_bins.launches
+    rec = recall_at_k(ids, gt, K)
+    ctx.report("pq_1m build points/s (2 runs, rows already on the device)", build_pps)
+    ctx.report("pq_1m recall@10", rec)
+    ctx.report("pq_1m kernel launches", f"pq_scan_bins {launches}, flat_scan_bins "
+                                        f"{flat_launches} for {n_batches} batches")
+    if dev.type == "cuda":
+        ctx.report("pq_1m peak device memory GB (build + search, max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    if not ctx.rehearse and (launches != n_batches or flat_launches):
+        raise AssertionError(f"pq kernel launched {launches} times for {n_batches} batches")
+    if rec < 0.95:
+        raise AssertionError(f"pq_1m recall@10 {rec} < 0.95")
+    del xd
+
+    # the kernel on the main path's own inputs (the first batch), held
+    # against its plain version
+    st = idx.state
+    qs = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(dev), cfg.metric)
+    lut = PQ.adc_lut(PQ.apply_rotation(qs, st.rot), st.codebooks)
+    args = (cfg.l_bins, cfg.pallas_chunk, cfg.metric)
+    errs = {}
+    for precision in ("int8", "default", "high"):
+        errs[precision] = compare_pq_case(
+            ctx, f"PQ main-path inputs B={lut.shape[0]} N={st.norms.shape[0]} {precision}",
+            lut, st.codes, st.norms, *args, precision, cfg.per_bin, cfg.seg_rows)
+    return idx, ids, launches, lut, errs
+
+
+def profile_search(ctx: Ctx, index, q1, batches: int = 3):
+    """Where a search batch's device time goes: torch.profiler over a few
+    batches after a warm one. Kernel time by name, and the device's busy
+    share of the window (the union of kernel intervals over the host wall
+    time of the window, which ends in a sync)."""
+    if ctx.device.type != "cuda":
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    qb = [q1[i * ctx.batch:(i + 1) * ctx.batch] for i in range(batches)]
+    index.search(qb[0], K, approx=True)
+    ctx.sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for qq in qb:
+            index.search(qq, K, approx=True)
+        ctx.sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        ctx.report("pq_1m search profile", "no device time in the trace: not measured")
+        return
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
+    ctx.report(f"pq_1m search profile ({batches} batches of {ctx.batch})",
+               f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+               f"({100 * busy / wall_us:.1f}%), {len(kernels) // batches} kernels/batch")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {t / 1e3 / batches:9.3f} ms/batch  {c / batches:5.1f}x/batch  {name[:90]}")
+
+
+def phase_pq_times(ctx: Ctx, idx, q1, lut):
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    cfg, st = idx.cfg, idx.state
+    b, n_sub, _ = lut.shape
+    n = st.norms.shape[0]
+    kw = dict(l_bins=cfg.l_bins, chunk=cfg.pallas_chunk, metric=cfg.metric,
+              per_bin=cfg.per_bin, seg_rows=cfg.seg_rows)
+    ms = {p: ctx.time_ms(lambda p=p: PS.pq_scan_bins(lut, st.codes, st.norms, precision=p, **kw),
+                         reps=10)
+          for p in ("int8", "default", "high")}
+    plain_ms = ctx.time_ms(lambda: PS._pq_scan_bins_plain(
+        lut, st.codes, st.norms, cfg.l_bins, cfg.pallas_chunk, cfg.metric, "int8",
+        cfg.per_bin, cfg.seg_rows), reps=2)
+    # yardsticks: the product part alone, the LUT by a prebuilt one-hot of
+    # the padded corpus (int8 for the int8 path, bf16 for "default")
+    n_pad = -(-n // cfg.pallas_chunk) * cfg.pallas_chunk
+    lut8, _ = PS._prep_lut(lut, "int8")
+    lut8 = lut8.reshape(b, n_sub * 16)
+    codes = torch.zeros((n_sub // 2, n_pad), dtype=torch.uint8, device=st.codes.device)
+    codes[:, :n] = st.codes
+    from zvdb_tpu_torch.ops.pq import unpack_nibbles
+
+    oh8 = torch.nn.functional.one_hot(unpack_nibbles(codes.T, n_sub).long(), 16) \
+        .reshape(n_pad, n_sub * 16).to(torch.int8)
+    library_ms = None
+    if ctx.device.type == "cuda":
+        library_ms = ctx.time_ms(lambda: torch._int_mm(lut8, oh8.T), reps=5)
+    lutb, ohb = lut.reshape(b, -1).to(torch.bfloat16), oh8.T.to(torch.bfloat16)
+    bf16_ms = ctx.time_ms(lambda: torch.matmul(lutb, ohb), reps=5)
+    del oh8, ohb
+    n_seg, _ = PS.segments(n, cfg.pallas_chunk, cfg.seg_rows)
+    ops = 2.0 * b * n_pad * n_sub * 16
+    nbytes = n_sub // 2 * n + 4 * n + b * n_sub * 16 + 4 * b + 8 * b * n_seg * cfg.per_bin * cfg.l_bins
+    bound_ops, bound_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes)
+    shape = f"B={b} N={n} S={n_sub} L={cfg.l_bins} per_bin={cfg.per_bin}"
+    for p, t in ms.items():
+        ctx.report(f"pq kernel ms ({p}, {shape})", t)
+    ctx.report("pq plain version ms (int8)", plain_ms)
+    ctx.report("pq torch._int_mm yardstick ms (int8 [2048,256] x one-hot [256,N_pad])", library_ms)
+    ctx.report("pq bf16 torch.matmul yardstick ms (same shapes)", bf16_ms)
+    ctx.report("pq bound ms (2*B*N_pad*S*16 ops / 1979 TOP/s int8 vs bytes / 3.35 TB/s)",
+               f"{bound_ms} (ops {bound_ops}, bytes {bound_bytes})")
+    ctx.report("pq_1m search QPS (batches of 2048, 3 runs)", search_qps(ctx, idx, q1))
+    ctx.report("pq_1m server QPS (8 threads, requests of 16 queries)", server_qps(ctx, idx, q1))
+    profile_search(ctx, idx, q1)
+    return dict(ms=ms["int8"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes")
 
 
 def main() -> int:
@@ -441,10 +765,15 @@ def main() -> int:
     phase_device(ctx)
     phase_build(ctx)
     phase_compare(ctx)
+    phase_compare_pq(ctx)
     x1, q1 = make_workload(ctx)
-    flp, ids, launches = phase_main(ctx, x1, q1)
+    flp, ids, launches, gt = phase_main(ctx, x1, q1)
     phase_server(ctx, flp, q1, ids)
     t = phase_times(ctx, flp, q1)
+    del flp
+    pq_idx, pq_ids, pq_launches, lut, pq_errs = phase_pq_main(ctx, x1, q1, gt)
+    phase_server(ctx, pq_idx, q1, pq_ids, label="pq_1m ")
+    tp = phase_pq_times(ctx, pq_idx, q1, lut)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     record = {"kernels": [{
         "name": "flat_scan_bins",
@@ -458,6 +787,18 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": "operations",
         "library_ms": t["library_ms"],
+    }, {
+        "name": "pq_scan_bins",
+        "route": "cuda",
+        "source": "zvdb_tpu_torch/csrc/pq_scan.cu",
+        "replaces": "zvdb_tpu/ops/pallas_pq.py:203",
+        "launches": pq_launches,
+        "max_abs_err": pq_errs["int8"],
+        "ms": tp["ms"],
+        "plain_ms": tp["plain_ms"],
+        "bound_ms": tp["bound_ms"],
+        "bound_by": tp["bound_by"],
+        "library_ms": tp["library_ms"],
     }]}
     if ctx.rehearse:
         print(json.dumps(record))

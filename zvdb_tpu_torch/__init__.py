@@ -1,16 +1,20 @@
 """zvdb-tpu on PyTorch and CUDA: the port of `zvdb_tpu` to an NVIDIA H100.
 
 The JAX package `zvdb_tpu` stays the reference; this package imports none of
-it and no JAX. Ported so far: the flat engine and the server in front of it.
+it and no JAX. Ported so far: the flat engine, the PQ engine and the server
+in front of them.
 
-    from zvdb_tpu_torch import FlatConfig, FlatIndex, SearchServer, exact_ground_truth
+    from zvdb_tpu_torch import (FlatConfig, FlatIndex, PQConfig, PQFlatIndex,
+                                SearchServer, exact_ground_truth)
 
 Entry points run on the GPU (device=None means "cuda") and raise without one
 unless the caller passes device="cpu".
 """
 
-from .utils.config import FlatConfig
+from .utils.config import FlatConfig, PQConfig
 from .index.flat import FlatIndex, exact_ground_truth
+from .index.pqflat import PQFlatIndex
 from .serve import SearchServer
 
-__all__ = ["FlatConfig", "FlatIndex", "SearchServer", "exact_ground_truth"]
+__all__ = ["FlatConfig", "FlatIndex", "PQConfig", "PQFlatIndex", "SearchServer",
+           "exact_ground_truth"]

@@ -1,0 +1,335 @@
+// Fused 4-bit PQ (ADC) scan with a per-query top-1/top-2 bin fold, for
+// Hopper (sm_90a).
+//
+// Replaces zvdb_tpu/ops/pallas_pq.py:_pq_kernel (wrapper pq_scan_bins).
+// Codes are nibble-packed and stored transposed, codes_t [S/2, N]: byte j of
+// row c holds subspace 2j in its low nibble and 2j+1 in its high nibble. For
+// query b the score of row c is
+//
+//     s = norms[c] - f * sum_s LUT[b, s, code(c, s)]     (f = 2 for l2, 1 otherwise)
+//
+// with norms of +inf marking invalid rows. Row c belongs to segment
+// c / seg_len and bin c % L; each (query, segment, bin) keeps its best row
+// (PER_BIN = 1) or its best two (PER_BIN = 2): out[b, seg*PER_BIN*L + l]
+// holds the best, out[b, seg*PER_BIN*L + L + l] the runner-up, -1 / +inf
+// where a bin saw fewer valid rows.
+//
+// The precision is part of the contract, as on the TPU:
+//   INT8     the LUT arrives quantized to int8 with a per-query scale; the
+//            int32 sum is exact, then dots = float(sum) * scale and
+//            s = n - f * dots with __fmul_rn / __fsub_rn, so nothing contracts
+//            into an FMA and the scores equal the plain version bit for bit;
+//   DEFAULT  bf16-rounded LUT entries (round to nearest even) summed in f32;
+//   HIGH     hi = bf16(v), lo = bf16(v - hi): sum(hi) + sum(lo), two f32 sums.
+// Sums run over the subspaces in order 0..S-1.
+//
+// The fold keeps the TPU's tie rules: take1 = s < s1; take2 = !take1 &&
+// s < s2, with rows visited in increasing order, so the lower row wins a tie
+// and an equal score lands in slot 2. 4-bit codes make many rows
+// bit-identical, so ties are common here.
+//
+// What bounds it. Per call the work is B*N*S table lookups and adds; counted
+// as the TPU kernel's one-hot product (2*B*N*S*16 operations, 1.05e12 at
+// B=2048, N=1M, S=16) it is bound by the int8 tensor-core rate at ~0.53 ms,
+// while its bytes (codes N*S/2, norms, the B x n_seg*PER_BIN*L outputs) take
+// ~0.014 ms. This first version does the lookups from shared memory on the
+// CUDA cores instead, so the shared-memory pipe (one warp-wide load per
+// clock per SM) bounds it: one load per (query, row, subspace) for DEFAULT
+// (B*N*S/32 warp loads / (132 SMs * 1.75 GHz), ~4.6 ms at that shape), two
+// for HIGH, and for INT8 one per (query PAIR, row, subspace), ~2.3 ms. Tensor
+// cores (an int8 mma over a one-hot or a packed-table formulation) and TMA
+// are later work.
+//
+// What the design does about it. The Pallas grid walked corpus chunks in
+// order and carried the bins in VMEM. CUDA blocks run in no order, so each
+// block owns one (tile of QT queries, slice of bins, segment) and walks rows
+// c = seg*seg_len + m*L + l in increasing m; each thread owns one bin and
+// keeps its (s1, i1, s2, i2) for all QT queries in registers for the whole
+// walk: no merge pass, no atomics, no scratch memory. The query tile's LUT
+// sits in shared memory in natural [S, 16] order. A thread loads its row's
+// S/2 code bytes once per step (coalesced across the bin slice: neighbouring
+// threads read neighbouring bytes of one codes_t row) and reuses them for
+// every query it owns. INT8 packs two queries' biased entries into one
+// 32-bit word and sums both with one add (adc_row_int8): half the shared
+// loads and adds, and half the accumulator registers. Ragged N, +inf rows
+// and a B that is no multiple of QT are masked here, with no padded copy.
+//
+// The per-row ADC sums (adc_row_int8, adc_row_f32) and the fold (fold_row)
+// are device functions, so a (cluster, chunk) grid for the grouped IVF-PQ
+// scan can call them from a second entry point.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int QT = 16;             // queries per block, all owned by every thread
+constexpr int MAX_THREADS = 256;   // bins per block
+constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
+
+enum Precision { kDefault = 0, kHigh = 1, kInt8 = 2 };
+
+// Shared-memory words per query tile and table entry: f32 planes (one, or
+// hi and lo for HIGH), or for INT8 one 32-bit word per PAIR of queries.
+template <int PREC> __host__ __device__ constexpr int lut_words(int sc) {
+  return PREC == kInt8 ? QT / 2 * sc : (PREC == kHigh ? 2 : 1) * QT * sc;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// INT8: acc[p] holds two queries' sums, 2p in the low and 2p+1 in the high
+// 16 bits. Each table word is (lut[2p] + 128) | (lut[2p+1] + 128) << 16, so
+// both halves stay in [0, 255] and a half's sum over S <= 256 subspaces
+// stays below 2**16: one 32-bit add sums two queries with no carry between
+// them. Subspaces are summed in order 0..S-1 (integer sums: exact).
+__device__ __forceinline__ void adc_row_int8(const unsigned* __restrict__ lut, int sc,
+                                             const uint8_t* __restrict__ codes_t,
+                                             long long n_rows, long long c, int nb,
+                                             unsigned (&acc)[QT / 2]) {
+#pragma unroll
+  for (int p = 0; p < QT / 2; ++p) acc[p] = 0u;
+  for (int j = 0; j < nb; ++j) {
+    const unsigned byte = __ldg(codes_t + (long long)j * n_rows + c);
+    const int o0 = (2 * j) * 16 + (byte & 15u);
+    const int o1 = (2 * j + 1) * 16 + (byte >> 4);
+#pragma unroll
+    for (int p = 0; p < QT / 2; ++p) {
+      acc[p] += lut[p * sc + o0];
+      acc[p] += lut[p * sc + o1];
+    }
+  }
+}
+
+// Query q's exact integer sum out of the packed pair sums.
+__device__ __forceinline__ int int8_sum(const unsigned (&acc)[QT / 2], int q, int n_sub) {
+  return (int)((acc[q / 2] >> (16 * (q % 2))) & 0xFFFFu) - 128 * n_sub;
+}
+
+// DEFAULT / HIGH: acc[q] (and acc_lo[q] for HIGH) = sum over subspaces
+// 0..S-1, in that order, of query q's f32 table entry at row c's code. lut
+// is [QT][planes][S*16].
+template <int PREC>
+__device__ __forceinline__ void adc_row_f32(const float* __restrict__ lut, int sc,
+                                            const uint8_t* __restrict__ codes_t,
+                                            long long n_rows, long long c, int nb,
+                                            float (&acc)[QT], float (&acc_lo)[QT]) {
+  constexpr int P = PREC == kHigh ? 2 : 1;
+#pragma unroll
+  for (int q = 0; q < QT; ++q) {
+    acc[q] = 0.f;
+    acc_lo[q] = 0.f;
+  }
+  for (int j = 0; j < nb; ++j) {
+    const unsigned byte = __ldg(codes_t + (long long)j * n_rows + c);
+    const int o0 = (2 * j) * 16 + (byte & 15u);
+    const int o1 = (2 * j + 1) * 16 + (byte >> 4);
+#pragma unroll
+    for (int q = 0; q < QT; ++q) {
+      const float* l = lut + q * P * sc;
+      acc[q] = __fadd_rn(acc[q], l[o0]);
+      acc[q] = __fadd_rn(acc[q], l[o1]);
+      if constexpr (PREC == kHigh) {
+        acc_lo[q] = __fadd_rn(acc_lo[q], l[sc + o0]);
+        acc_lo[q] = __fadd_rn(acc_lo[q], l[sc + o1]);
+      }
+    }
+  }
+}
+
+// The surrogate score from a row's dot product, with no contraction into an FMA.
+__device__ __forceinline__ float score(float dots, float nrm, float factor) {
+  return __fsub_rn(nrm, __fmul_rn(factor, dots));
+}
+
+// Fold row c's score into one bin's best (and runner-up), the TPU's rules.
+template <int PER_BIN>
+__device__ __forceinline__ void fold_row(float s, int c, float& s1, int& i1, float& s2,
+                                         int& i2) {
+  const bool take1 = s < s1;
+  if constexpr (PER_BIN == 2) {
+    const bool take2 = !take1 && s < s2;
+    if (take1) {
+      s2 = s1;
+      i2 = i1;
+    } else if (take2) {
+      s2 = s;
+      i2 = c;
+    }
+  }
+  if (take1) {
+    s1 = s;
+    i1 = c;
+  }
+}
+
+template <int PREC, int PER_BIN>
+__global__ void __launch_bounds__(MAX_THREADS)
+pq_scan_kernel(const void* __restrict__ lut_in, const float* __restrict__ scales,
+               const uint8_t* __restrict__ codes_t, const float* __restrict__ norms,
+               float* __restrict__ out_s, int* __restrict__ out_i, int B, int N,
+               int n_sub, int L, long long seg_len, float factor) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sc = n_sub * 16;
+  unsigned* lut_w = reinterpret_cast<unsigned*>(smem);        // INT8 pair words
+  float* lut_f = reinterpret_cast<float*>(smem);              // f32 planes
+  float* scl = reinterpret_cast<float*>(smem) + lut_words<PREC>(sc);   // [QT]
+
+  const int b0 = blockIdx.x * QT;
+  const int l = blockIdx.y * blockDim.x + threadIdx.x;     // this thread's bin
+  const int seg = blockIdx.z;
+
+  if constexpr (PREC == kInt8) {
+    const int8_t* lut8 = static_cast<const int8_t*>(lut_in);
+    for (int e = threadIdx.x; e < QT / 2 * sc; e += blockDim.x) {
+      const int p = e / sc, k = e % sc;
+      const int b = b0 + 2 * p;
+      const unsigned lo = b < B ? (unsigned)((int)lut8[(long long)b * sc + k] + 128) : 128u;
+      const unsigned hi =
+          b + 1 < B ? (unsigned)((int)lut8[(long long)(b + 1) * sc + k] + 128) : 128u;
+      lut_w[e] = lo | (hi << 16);
+    }
+  } else {
+    constexpr int P = PREC == kHigh ? 2 : 1;
+    const float* lut32 = static_cast<const float*>(lut_in);
+    for (int e = threadIdx.x; e < QT * sc; e += blockDim.x) {
+      const int q = e / sc, k = e % sc;
+      const int b = b0 + q;
+      const float v = b < B ? lut32[(long long)b * sc + k] : 0.f;
+      const float hi = bf16_round(v);
+      lut_f[q * P * sc + k] = hi;
+      if constexpr (PREC == kHigh) lut_f[q * P * sc + sc + k] = bf16_round(v - hi);
+    }
+  }
+  if (threadIdx.x < QT) {
+    const int b = b0 + threadIdx.x;
+    scl[threadIdx.x] = (PREC == kInt8 && b < B) ? scales[b] : 1.f;
+  }
+  __syncthreads();
+  if (l >= L) return;
+
+  const float inf = __int_as_float(0x7f800000);
+  float s1[QT], s2[QT];
+  int i1[QT], i2[QT];
+#pragma unroll
+  for (int q = 0; q < QT; ++q) {
+    s1[q] = inf;
+    s2[q] = inf;
+    i1[q] = -1;
+    i2[q] = -1;
+  }
+
+  float scale[QT];   // INT8 dequantization scales (unused otherwise)
+#pragma unroll
+  for (int q = 0; q < QT; ++q) scale[q] = scl[q];
+
+  const long long seg_lo = (long long)seg * seg_len;
+  const long long seg_hi = seg_lo + seg_len < N ? seg_lo + seg_len : (long long)N;
+  for (long long c = seg_lo + l; c < seg_hi; c += L) {
+    const float nrm = __ldg(norms + c);
+    if (nrm == inf) continue;   // invalid row: its score is +inf, never taken
+    if constexpr (PREC == kInt8) {
+      unsigned acc[QT / 2];
+      adc_row_int8(lut_w, sc, codes_t, N, c, n_sub / 2, acc);
+#pragma unroll
+      for (int q = 0; q < QT; ++q) {
+        const float dots = __fmul_rn(__int2float_rn(int8_sum(acc, q, n_sub)), scale[q]);
+        fold_row<PER_BIN>(score(dots, nrm, factor), (int)c, s1[q], i1[q], s2[q], i2[q]);
+      }
+    } else {
+      float acc[QT], acc_lo[QT];
+      adc_row_f32<PREC>(lut_f, sc, codes_t, N, c, n_sub / 2, acc, acc_lo);
+#pragma unroll
+      for (int q = 0; q < QT; ++q) {
+        const float dots = PREC == kHigh ? __fadd_rn(acc[q], acc_lo[q]) : acc[q];
+        fold_row<PER_BIN>(score(dots, nrm, factor), (int)c, s1[q], i1[q], s2[q], i2[q]);
+      }
+    }
+  }
+
+  const int lw = PER_BIN * L;
+  const long long width = (long long)gridDim.z * lw;
+#pragma unroll
+  for (int q = 0; q < QT; ++q) {
+    const int b = b0 + q;
+    if (b >= B) continue;
+    const long long o = (long long)b * width + (long long)seg * lw + l;
+    out_s[o] = s1[q];
+    out_i[o] = i1[q];
+    if constexpr (PER_BIN == 2) {
+      out_s[o + L] = s2[q];
+      out_i[o + L] = i2[q];
+    }
+  }
+}
+
+template <int PREC, int PER_BIN>
+int launch(dim3 grid, int threads, size_t smem, cudaStream_t stream, const void* lut,
+           const float* scales, const uint8_t* codes_t, const float* norms, float* out_s,
+           int* out_i, int B, int N, int n_sub, int L, long long seg_len, float factor) {
+  auto kernel = pq_scan_kernel<PREC, PER_BIN>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, threads, smem, stream>>>(lut, scales, codes_t, norms, out_s, out_i, B, N,
+                                          n_sub, L, seg_len, factor);
+  return (int)cudaGetLastError();
+}
+
+template <int PREC>
+int launch_prec(int per_bin, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                const void* lut, const float* scales, const uint8_t* codes_t,
+                const float* norms, float* out_s, int* out_i, int B, int N, int n_sub, int L,
+                long long seg_len, float factor) {
+  if (per_bin == 1)
+    return launch<PREC, 1>(grid, threads, smem, stream, lut, scales, codes_t, norms, out_s,
+                           out_i, B, N, n_sub, L, seg_len, factor);
+  return launch<PREC, 2>(grid, threads, smem, stream, lut, scales, codes_t, norms, out_s,
+                         out_i, B, N, n_sub, L, seg_len, factor);
+}
+
+}  // namespace
+
+// Launches the scan on `stream`; returns a CUDA error code (0 on success).
+// lut [B, S, 16]: int8 (precision 2, S <= 256) or f32 (0 default, 1 high); scales [B]
+// f32 (read for int8 only); codes_t [S/2, N] uint8; norms [N] f32;
+// out_s [B, n_seg*per_bin*L] f32, out_i the same int32; every array
+// contiguous on the device. Segment z covers rows [z*seg_len, (z+1)*seg_len).
+// Allocates nothing, does not sync.
+extern "C" int zvdb_pq_scan_bins(const void* lut, const void* scales, const void* codes_t,
+                                 const void* norms, void* out_s, void* out_i, int B, int N,
+                                 int n_sub, int L, long long seg_len, int n_seg,
+                                 float factor, int precision, int per_bin, void* stream) {
+  if (B <= 0 || N < 0 || L <= 0 || n_sub <= 0 || n_sub % 2 != 0 || seg_len <= 0 ||
+      n_seg <= 0 || n_seg > 65535 || precision < 0 || precision > 2 || per_bin < 1 ||
+      per_bin > 2 || (precision == kInt8 && n_sub > 256))
+    return (int)cudaErrorInvalidValue;
+  const int threads = L < MAX_THREADS ? ((L + 31) / 32) * 32 : MAX_THREADS;
+  const dim3 grid((B + QT - 1) / QT, (L + threads - 1) / threads, n_seg);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const int sc = n_sub * 16;
+  const int words = precision == kInt8 ? lut_words<kInt8>(sc)
+                    : precision == kHigh ? lut_words<kHigh>(sc) : lut_words<kDefault>(sc);
+  const size_t smem = ((size_t)words + QT) * 4;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* c = static_cast<const uint8_t*>(codes_t);
+  const float* scl = static_cast<const float*>(scales);
+  const float* nr = static_cast<const float*>(norms);
+  float* os = static_cast<float*>(out_s);
+  int* oi = static_cast<int*>(out_i);
+  switch (precision) {
+    case kInt8:
+      return launch_prec<kInt8>(per_bin, grid, threads, smem, s, lut, scl, c, nr, os, oi, B,
+                                N, n_sub, L, seg_len, factor);
+    case kHigh:
+      return launch_prec<kHigh>(per_bin, grid, threads, smem, s, lut, scl, c, nr, os, oi, B,
+                                N, n_sub, L, seg_len, factor);
+    default:
+      return launch_prec<kDefault>(per_bin, grid, threads, smem, s, lut, scl, c, nr, os, oi, B,
+                                   N, n_sub, L, seg_len, factor);
+  }
+}

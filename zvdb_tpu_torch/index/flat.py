@@ -216,20 +216,25 @@ def _empty_result(b: int, k: int, device):
             torch.full((b, k), -1, dtype=torch.int32, device=device))
 
 
+def tensor_from_numpy(a, device, bf16: bool = False) -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor on `device`. bf16 arrives as
+    ml_dtypes.bfloat16 (from np.asarray of a JAX array) or as the raw 2-byte
+    void dtype np.savez writes for it; both are read as bits, so ml_dtypes is
+    never imported. bf16=True also reads any other 2-byte array (the uint16
+    view a PQ save file holds) as bf16 bits."""
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and (a.dtype.kind == "V" or bf16):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()) \
+            .view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def state_from_numpy(vectors, norms, scales, n, device) -> FlatState:
     """The JAX package's FlatState arrays, as numpy, -> the port's state on
-    `device`. bf16 arrives as ml_dtypes.bfloat16 (from np.asarray of a JAX
-    array) or as the raw 2-byte void dtype np.savez writes for it; both are
-    read as bits, so ml_dtypes is never imported."""
-    def tensor(a):
-        a = np.asarray(a)
-        if a.dtype.kind == "V" and a.dtype.itemsize == 2:   # bfloat16 bits
-            return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()) \
-                .view(torch.bfloat16).to(device)
-        return torch.from_numpy(np.array(a)).to(device)
-
-    return FlatState(vectors=tensor(vectors), norms=tensor(norms).float(),
-                     scales=tensor(scales).float(), n=int(np.asarray(n)))
+    `device`."""
+    return FlatState(vectors=tensor_from_numpy(vectors, device),
+                     norms=tensor_from_numpy(norms, device).float(),
+                     scales=tensor_from_numpy(scales, device).float(), n=int(np.asarray(n)))
 
 
 class FlatIndex:

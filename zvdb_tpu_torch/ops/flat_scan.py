@@ -16,71 +16,28 @@ function in plain PyTorch, which the tests hold against the JAX package.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from . import distance as D
 
 _PRECISION_CODE = {"highest": 0, "high": 1, "default": 2}
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flat_scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _MAX_BINS = 65535 * 64   # the kernel's grid holds L/64 bin slices in gridDim.y
 
-_lib = None
-_lib_lock = threading.Lock()
 build_info: dict = {}   # path, seconds, ptxas report of this process's build
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernel is built with the CUDA toolkit")
-    return path
-
-
-def build() -> ctypes.CDLL:
-    """Compile csrc/flat_scan.cu (once per source and flags) and load it."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        key = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        path = _BUILD_DIR / f"flat_scan_{key}.so"
-        t0 = time.perf_counter()
-        report = ""
-        if not path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stdout}{proc.stderr}")
-            report = proc.stdout + proc.stderr
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        fn = lib.zvdb_flat_scan_bins
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        build_info.update(path=str(path), seconds=time.perf_counter() - t0,
-                          ptxas=report)
-        _lib = lib
-        return lib
+def build():
+    """Compile csrc/flat_scan.cu (once per source and flags), load it and
+    return its entry point."""
+    fn, info = cuda_build.load(
+        "flat_scan.cu", "zvdb_flat_scan_bins",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    build_info.update(info)
+    return fn
 
 
 def _check_args(l_bins: int, bq_tile: int, chunk: int, metric: str, precision: str):
@@ -158,10 +115,10 @@ def flat_scan_bins(
     out_i = torch.empty((b, l_bins), dtype=torch.int32, device=q.device)
     if b == 0:
         return out_s, out_i
-    lib = build()
+    kernel = build()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.zvdb_flat_scan_bins(
+        rc = kernel(
             q.data_ptr(), vectors.data_ptr(), int(vectors.dtype == torch.bfloat16),
             norms.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, n, d, l_bins,
             2.0 if metric == "l2" else 1.0, _PRECISION_CODE[precision], stream)

@@ -51,3 +51,34 @@ def merge_topk(scores_a, ids_a, scores_b, ids_b, k: int):
     s = torch.cat([scores_a, scores_b], dim=-1)
     i = torch.cat([ids_a, ids_b], dim=-1)
     return smallest_k(s, i, k)
+
+
+def _lexsort(primary: torch.Tensor, secondary: torch.Tensor, *carried: torch.Tensor):
+    """Order the last axis by (primary, secondary): a stable sort by the
+    second key, then a stable sort by the first. Returns every input in
+    that order."""
+    _, p = torch.sort(secondary, dim=-1, stable=True)
+    _, p2 = torch.sort(torch.gather(primary, -1, p), dim=-1, stable=True)
+    p = torch.gather(p, -1, p2)
+    return [torch.gather(a, -1, p) for a in (primary, secondary, *carried)]
+
+
+def sort_smallest_k(scores: torch.Tensor, ids: torch.Tensor, k: int, dedupe: bool = False):
+    """Per-row k smallest of (scores [..., C], ids [..., C]) ordered by
+    (score, id), as the JAX package's lax.sort over two keys orders them:
+    equal scores go to the lower id (not the lower position), and invalid
+    slots (+inf / -1) sort last. -0.0 and +0.0 compare equal on both sides.
+
+    dedupe=True keeps only the first of entries with the same id (the one
+    with the smallest score): a sort by (id, score) makes them adjacent."""
+    idkey = torch.where(ids < 0, 2**30, ids)
+    if dedupe:
+        sk, ss, si = _lexsort(idkey, scores, ids)
+        dup = (sk[..., 1:] == sk[..., :-1]) & (si[..., 1:] >= 0)
+        dup = torch.cat([torch.zeros_like(dup[..., :1]), dup], dim=-1)
+        scores = torch.where(dup, float("inf"), ss)
+        idkey = torch.where(dup, 2**30, sk)
+        ids = torch.where(dup, -1, si)
+    ss, _, si = _lexsort(scores, idkey, ids)
+    out_s, out_i = ss[..., :k], si[..., :k]
+    return torch.where(out_i >= 0, out_s, float("inf")), out_i
