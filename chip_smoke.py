@@ -7,13 +7,18 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device     - the card's name, count and power limit (nvidia-smi);
   2. build      - nvcc builds zvdb_tpu_torch/csrc/flat_scan.cu and
-                  csrc/pq_scan.cu for sm_90a, both at once;
+                  csrc/pq_scan.cu (kernels B and C, one library) for sm_90a,
+                  both at once;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
                   over a grid of shapes, every precision and metric,
                   tie-aware; pq_scan over every precision x {l2, dot} x
                   per_bin {1, 2} x {one pool, segment pools}, invalid rows,
                   ragged N, B=1 and duplicated codes (int8: equal ids and
-                  scores; default/high: tie-aware);
+                  scores; default/high: tie-aware); pq_grouped_scan over
+                  every precision x {l2, dot} x per_bin {1, 2}, cap no
+                  multiple of L, tombstoned rows, empty slots and empty slot
+                  tiles, qcap 32 and 64, B=1, a 64 KB table, duplicated
+                  codes, and the main path's geometry;
   4. main       - the flat_1m_pallas configuration (1M x 128d synthetic SIFT
                   stand-in, rerank=4, scan="pallas", l_bins=1024) searched in
                   batches of 2048 through the kernel, recall@10 against the
@@ -33,7 +38,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. pq times   - the PQ kernel in every precision, its plain version, the
                   torch._int_mm and bf16 matmul yardsticks, bound, search and
                   server QPS, and a torch.profiler breakdown of a search
-                  batch (kernel time by name, the device's busy share).
+                  batch (kernel time by name, the device's busy share);
+ 10. ivfpq main - the ivfpq_1m configuration (the same corpus and queries,
+                  IVFPQConfig(dim=128) defaults: ~4096 clusters, 4-bit
+                  n_sub=16 codes, int8 grouped scan through kernel C, int16
+                  refine; search nprobe=8, rerank=12) built (points/s, peak
+                  device memory, a traced build's stages) and searched in
+                  batches of 2048, launch counts (C once per batch, A and B
+                  never) and recall@10 read; kernel C on the main path's own
+                  table and slots against its plain version;
+ 11. ivfpq server - a SearchServer over the IVF-PQ index, as in phase 5;
+ 12. ivfpq times - kernel C in every precision, its plain version, the
+                  torch.bmm yardstick, bound, search and server QPS, and a
+                  torch.profiler breakdown of a search batch.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -127,7 +144,9 @@ def phase_build(ctx: Ctx):
     with ThreadPoolExecutor(2) as pool:   # one nvcc per source, started together
         for fut in [pool.submit(m.build) for m in (FS, PS)]:
             fut.result()
-    ctx.report("build seconds (both kernels, in parallel)", round(time.perf_counter() - t0, 2))
+    PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
+    ctx.report("build seconds (flat_scan.cu and pq_scan.cu in parallel; three kernels)",
+               round(time.perf_counter() - t0, 2))
     for mod in (FS, PS):
         info = mod.build_info
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
@@ -257,8 +276,11 @@ def make_workload(ctx: Ctx):
     return x1, q1
 
 
-def batched_ids(ctx, index, q1, approx):
-    out = [index.search(q1[lo:lo + ctx.batch], K, approx=approx)[1]
+APPROX = {"approx": True}   # search keywords of the flat and PQ engines' kernel paths
+
+
+def batched_ids(ctx, index, q1, **search_kwargs):
+    out = [index.search(q1[lo:lo + ctx.batch], K, **search_kwargs)[1]
            for lo in range(0, q1.shape[0], ctx.batch)]
     return torch.cat(out).cpu().numpy()
 
@@ -291,7 +313,7 @@ def phase_main(ctx: Ctx, x1, q1):
     ctx.sync()
 
     flat_scan_bins.launches = 0
-    ids = batched_ids(ctx, flp, q1, approx=True)
+    ids = batched_ids(ctx, flp, q1, **APPROX)
     ctx.sync()
     launches = flat_scan_bins.launches
     rec = recall_at_k(ids, gt, K)
@@ -307,7 +329,7 @@ def phase_main(ctx: Ctx, x1, q1):
                                   pallas_bq=512), capacity=ctx.n, device=dev)
     single.add(x1)
     flat_scan_bins.launches = 0
-    ids1 = batched_ids(ctx, single, q1, approx=True)
+    ids1 = batched_ids(ctx, single, q1, **APPROX)
     ctx.sync()
     launches1 = flat_scan_bins.launches
     rec1 = recall_at_k(ids1, gt, K)
@@ -321,7 +343,7 @@ def phase_main(ctx: Ctx, x1, q1):
     return flp, ids, launches, gt
 
 
-def phase_server(ctx: Ctx, flp, q1, ids, label: str = ""):
+def phase_server(ctx: Ctx, flp, q1, ids, label: str = "", search_kwargs=APPROX):
     from zvdb_tpu_torch import SearchServer
 
     n_req = 400
@@ -332,7 +354,7 @@ def phase_server(ctx: Ctx, flp, q1, ids, label: str = ""):
     results = [None] * n_req
 
     with SearchServer(flp, k=K, max_batch=ctx.batch, max_wait_ms=2.0,
-                      search_kwargs={"approx": True}) as srv:
+                      search_kwargs=search_kwargs) as srv:
         def worker(t):
             futs = []
             for r in range(t, n_req, 8):
@@ -361,7 +383,7 @@ def phase_server(ctx: Ctx, flp, q1, ids, label: str = ""):
         raise AssertionError(f"{bad} server answers differ from the batched search")
 
 
-def search_qps(ctx: Ctx, index, q1, runs: int = 3):
+def search_qps(ctx: Ctx, index, q1, runs: int = 3, search_kwargs=APPROX):
     """End to end: search() over every query in batches, host clock ending
     in a sync; one QPS per run."""
     qps_runs = []
@@ -369,19 +391,19 @@ def search_qps(ctx: Ctx, index, q1, runs: int = 3):
         ctx.sync()
         t0 = time.perf_counter()
         for lo in range(0, q1.shape[0], ctx.batch):
-            index.search(q1[lo:lo + ctx.batch], K, approx=True)
+            index.search(q1[lo:lo + ctx.batch], K, **search_kwargs)
         ctx.sync()
         qps_runs.append(q1.shape[0] / (time.perf_counter() - t0))
     return qps_runs
 
 
-def server_qps(ctx: Ctx, index, q1):
+def server_qps(ctx: Ctx, index, q1, search_kwargs=APPROX):
     """Every query through a SearchServer: 8 client threads, 16-query requests."""
     from zvdb_tpu_torch import SearchServer
 
     chunk = 16
     with SearchServer(index, k=K, max_batch=ctx.batch, max_wait_ms=2.0,
-                      search_kwargs={"approx": True}) as srv:
+                      search_kwargs=search_kwargs) as srv:
         def worker(t, futs):
             for lo in range(t * chunk, q1.shape[0], 8 * chunk):
                 futs.append(srv.submit(q1[lo:lo + chunk]))
@@ -630,7 +652,7 @@ def phase_pq_main(ctx: Ctx, x1, q1, gt):
         idx.build(xd)
         ctx.sync()
         build_pps.append(ctx.n / (time.perf_counter() - t0))
-    ids = batched_ids(ctx, idx, q1, approx=True)
+    ids = batched_ids(ctx, idx, q1, **APPROX)
     ctx.sync()
     launches, flat_launches = PS.pq_scan_bins.launches, FS.flat_scan_bins.launches
     rec = recall_at_k(ids, gt, K)
@@ -661,7 +683,8 @@ def phase_pq_main(ctx: Ctx, x1, q1, gt):
     return idx, ids, launches, lut, errs
 
 
-def profile_search(ctx: Ctx, index, q1, batches: int = 3):
+def profile_search(ctx: Ctx, index, q1, batches: int = 3, label: str = "pq_1m",
+                   search_kwargs=APPROX):
     """Where a search batch's device time goes: torch.profiler over a few
     batches after a warm one. Kernel time by name, and the device's busy
     share of the window (the union of kernel intervals over the host wall
@@ -672,17 +695,17 @@ def profile_search(ctx: Ctx, index, q1, batches: int = 3):
     from torch.profiler import ProfilerActivity, profile
 
     qb = [q1[i * ctx.batch:(i + 1) * ctx.batch] for i in range(batches)]
-    index.search(qb[0], K, approx=True)
+    index.search(qb[0], K, **search_kwargs)
     ctx.sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for qq in qb:
-            index.search(qq, K, approx=True)
+            index.search(qq, K, **search_kwargs)
         ctx.sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        ctx.report("pq_1m search profile", "no device time in the trace: not measured")
+        ctx.report(f"{label} search profile", "no device time in the trace: not measured")
         return
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
@@ -692,7 +715,7 @@ def profile_search(ctx: Ctx, index, q1, batches: int = 3):
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
-    ctx.report(f"pq_1m search profile ({batches} batches of {ctx.batch})",
+    ctx.report(f"{label} search profile ({batches} batches of {ctx.batch})",
                f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
                f"({100 * busy / wall_us:.1f}%), {len(kernels) // batches} kernels/batch")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
@@ -750,6 +773,292 @@ def phase_pq_times(ctx: Ctx, idx, q1, lut):
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes")
 
 
+# ---------------------------------------------------------------------------
+# IVF-PQ: kernel C (pq_grouped_scan_bins) and the ivfpq_1m main path
+
+IVFPQ_SEARCH = {"nprobe": 8, "rerank": 12}   # the ivfpq_1m bench row's search
+
+
+def grouped_inputs(rng, b, c, cap, n_sub, qcap, metric, dev, invalid_every=0, live=6, dup=0):
+    """A table of ADC scale, random nibble codes per cluster [C, S/2, cap],
+    'decoded norms' [C, cap] (+inf every invalid_every-th row), and up to
+    `live` slots of each cluster filled with random queries (the rest empty,
+    so whole 16-slot tiles stay empty); dup > 0 repeats each cluster's first
+    dup rows through its block."""
+    lut = rng.standard_normal((b, n_sub, 16)).astype(np.float32)
+    codes = rng.integers(0, 256, (c, n_sub // 2, cap), dtype=np.uint8)
+    norms = ((rng.random((c, cap)) * n_sub).astype(np.float32) if metric == "l2"
+             else np.zeros((c, cap), np.float32))
+    if dup:
+        codes = np.tile(codes[:, :, :dup], (1, 1, -(-cap // dup)))[:, :, :cap].copy()
+        norms = np.tile(norms[:, :dup], (1, -(-cap // dup)))[:, :cap].copy()
+    if invalid_every:
+        norms.reshape(-1)[::invalid_every] = np.inf
+    qslot = np.full((c, qcap), -1, np.int32)
+    for ci in range(c):
+        k = int(rng.integers(0, live + 1))
+        qslot[ci, :k] = rng.integers(0, b, k)
+    return tuple(torch.from_numpy(a).to(dev) for a in (lut, qslot, codes, norms))
+
+
+def check_grouped_bins(lut, qslot, codes_blocks, norms_blocks, l_bins, metric, precision,
+                       ks, ki, ps, pi, label):
+    """Agreement of kernel C's bins (ks, ki) with its plain version's (ps, pi),
+    as check_pq_bins holds kernel B. "int8": positions and scores equal.
+    "default"/"high": tie-aware: the same empty bins; scores within 1e-5 of
+    the score scale; a position differing from plain only on a tie; each
+    position a valid row below cap in its own bin, its score recomputed in
+    f64 from the rounded table within that tolerance. Returns the largest
+    |kernel - plain|."""
+    from zvdb_tpu_torch.ops.pq import unpack_nibbles
+
+    if precision == "int8":
+        if not torch.equal(ki, pi):
+            raise AssertionError(f"{label}: {int((ki != pi).sum())} positions differ from plain")
+        if not torch.equal(ks, ps):
+            raise AssertionError(f"{label}: {int((ks != ps).sum())} scores differ from plain")
+        return 0.0
+    b, n_sub, _ = lut.shape
+    c, _, cap = codes_blocks.shape
+    qcap, lw = ki.shape[1], ki.shape[2]
+    f = 2.0 if metric == "l2" else 1.0
+    if not torch.equal(ki < 0, pi < 0):
+        raise AssertionError(f"{label}: empty bins differ ({int(((ki < 0) != (pi < 0)).sum())})")
+    fin = pi >= 0
+    if not bool(torch.isinf(ks[~fin]).all()):
+        raise AssertionError(f"{label}: an empty bin has a finite score")
+    scale = max(float(ps[fin].abs().max()) if bool(fin.any()) else 1.0,
+                2.0 * float(lut.abs().amax(-1).sum(-1).max()))
+    tol = 1e-5 * scale
+    diff = (ks - ps).abs()[fin]
+    if bool((diff > tol).any()):
+        raise AssertionError(f"{label}: bin scores differ by up to {float(diff.max())}")
+    if bool(((ks - ps).abs()[fin & (ki != pi)] > tol).any()):
+        raise AssertionError(f"{label}: a position differs from plain without a tie")
+    pos = ki.long()
+    col = torch.arange(lw, device=ki.device)
+    if bool((((pos % l_bins) != (col % l_bins)) | (pos >= cap))[fin].any()):
+        raise AssertionError(f"{label}: a position lies outside its bin or past cap")
+    hi = lut.to(torch.bfloat16).float()
+    planes = [hi] if precision == "default" else [hi, (lut - hi).to(torch.bfloat16).float()]
+    table = sum(p.double() for p in planes).reshape(b, n_sub * 16)
+    sub16 = torch.arange(n_sub, device=lut.device) * 16
+    step = max(1, (1 << 24) // (qcap * lw * n_sub))     # clusters per f64 recheck
+    for c0 in range(0, c, step):
+        c1 = min(c0 + step, c)
+        codes = unpack_nibbles(codes_blocks[c0:c1].transpose(1, 2), n_sub).long()  # [cc, cap, S]
+        pp = pos[c0:c1].clamp(min=0)
+        ci = torch.arange(c1 - c0, device=lut.device)[:, None, None]
+        idx = codes[ci, pp] + sub16                                              # [cc, qcap, lw, S]
+        rows = table[qslot[c0:c1].clamp(min=0).long()]                           # [cc, qcap, S*16]
+        dots = torch.gather(rows, 2, idx.reshape(c1 - c0, qcap, -1)).reshape(idx.shape).sum(-1)
+        nrm = norms_blocks[c0:c1][ci, pp].double()
+        m = fin[c0:c1]
+        if not bool(torch.isfinite(nrm[m]).all()):
+            raise AssertionError(f"{label}: a position names an invalid row")
+        gap = (nrm - f * dots - ks[c0:c1].double()).abs()[m]
+        if bool((gap > tol).any()):
+            raise AssertionError(f"{label}: a chosen row's f64 score is {float(gap.max())} "
+                                 "from its bin score")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def compare_grouped_case(ctx, label, lut, qslot, codes, norms, l_bins, chunk, metric, precision,
+                         per_bin):
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    ks, ki = PS.pq_grouped_scan_bins(lut, qslot, codes, norms, l_bins=l_bins, chunk=chunk,
+                                     metric=metric, precision=precision, per_bin=per_bin)
+    ps, pi = PS._pq_grouped_scan_bins_plain(lut, qslot, codes, norms, l_bins, chunk, metric,
+                                            precision, per_bin)
+    ctx.sync()
+    err = check_grouped_bins(lut, qslot, codes, norms, l_bins, metric, precision, ks, ki, ps, pi,
+                             label)
+    print(f"  compare {label}: ok, max |kernel - plain| = {err:.3g}", flush=True)
+    return err
+
+
+def phase_compare_ivfpq(ctx: Ctx):
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    rng = np.random.default_rng(432)
+    dev = ctx.device
+    # (B, C, cap, S, qcap, L, chunk, metric, precision, per_bin, invalid_every, live slots)
+    cases = []
+    for precision in ("int8", "default", "high"):
+        for metric in ("l2", "dot"):
+            for per_bin in (1, 2):   # cap 700: no multiple of L; qcap 64: four slot tiles
+                cases.append((37, 50, 700, 16, 64, 256, 512, metric, precision, per_bin, 7, 20))
+    cases += [
+        (1, 20, 300, 16, 32, 256, 512, "l2", "int8", 2, 5, 3),       # B=1, qcap 32
+        (70, 30, 1000, 32, 32, 128, 512, "l2", "high", 2, 9, 32),    # 64 KB of table: > 48 KB smem
+        (9, 12, 40, 16, 32, 128, 128, "dot", "default", 1, 0, 4),    # cap < L: empty bins
+    ]
+    if not ctx.rehearse:   # the main path's geometry: about 4 live slots of 32 per cluster
+        cases.append((BATCH, 4096, 624, 16, 32, 256, 512, "l2", "int8", 2, 11, 8))
+
+    # the tie rule: each cluster repeats its first 256 rows, so every bin of
+    # a live slot holds a row and its equal copy: the lower wins slot 1
+    for precision in ("int8", "default", "high"):
+        lut, qslot, codes, norms = grouped_inputs(rng, 65, 6, 512, 16, 32, "l2", dev, live=20,
+                                                  dup=256)
+        _, ki = PS.pq_grouped_scan_bins(lut, qslot, codes, norms, l_bins=256, chunk=256,
+                                        precision=precision, per_bin=2)
+        ki = ki[qslot >= 0]
+        want = torch.arange(256, device=dev, dtype=torch.int32).expand(ki.shape[0], -1)
+        if not (torch.equal(ki[:, :256], want) and torch.equal(ki[:, 256:], want + 256)):
+            raise AssertionError(f"IVF-PQ tie rule broken ({precision})")
+    print("  compare IVF-PQ tie rule (duplicated codes, every precision, per_bin=2): ok",
+          flush=True)
+    for b, c, cap, n_sub, qcap, l_bins, chunk, metric, precision, per_bin, inv, live in cases:
+        lut, qslot, codes, norms = grouped_inputs(rng, b, c, cap, n_sub, qcap, metric, dev,
+                                                  invalid_every=inv, live=live)
+        label = (f"IVF-PQ B={b} C={c} cap={cap} S={n_sub} qcap={qcap} L={l_bins} {metric} "
+                 f"{precision} per_bin={per_bin}")
+        compare_grouped_case(ctx, label, lut, qslot, codes, norms, l_bins, chunk, metric,
+                             precision, per_bin)
+
+
+def phase_ivfpq_main(ctx: Ctx, x1, q1, gt):
+    from zvdb_tpu_torch import IVFPQConfig, IVFPQIndex
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.index import ivfpq as IV
+    from zvdb_tpu_torch.ops import distance as D
+    from zvdb_tpu_torch.ops import flat_scan as FS
+    from zvdb_tpu_torch.ops import pq as PQ
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    dev = ctx.device
+    cfg = IVFPQConfig(dim=ctx.dim)
+    ctx.report("ivfpq_1m config", f"{cfg}, search {IVFPQ_SEARCH}")
+    n_batches = -(-q1.shape[0] // ctx.batch)
+    xd = torch.from_numpy(x1).to(dev)
+    warm = IVFPQIndex(cfg, device=dev)    # first use of every op on the card
+    warm.build(xd)
+    del warm
+    ctx.sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    FS.flat_scan_bins.launches = 0
+    PS.pq_scan_bins.launches = 0
+    PS.pq_grouped_scan_bins.launches = 0
+    build_pps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        idx = IVFPQIndex(cfg, device=dev)
+        idx.build(xd)
+        ctx.sync()
+        build_pps.append(ctx.n / (time.perf_counter() - t0))
+    ids = batched_ids(ctx, idx, q1, **IVFPQ_SEARCH)
+    ctx.sync()
+    launches = PS.pq_grouped_scan_bins.launches
+    other = (FS.flat_scan_bins.launches, PS.pq_scan_bins.launches)
+    rec = recall_at_k(ids, gt, K)
+    ctx.report("ivfpq_1m build points/s (2 runs, rows already on the device)", build_pps)
+    ctx.report("ivfpq_1m recall@10", rec)
+    ctx.report("ivfpq_1m kernel launches", f"pq_grouped_scan_bins {launches}, flat_scan_bins "
+                                           f"{other[0]}, pq_scan_bins {other[1]} for "
+                                           f"{n_batches} batches")
+    if dev.type == "cuda":
+        ctx.report("ivfpq_1m peak device memory GB (build + search, max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    if not ctx.rehearse and (launches != n_batches or any(other)):
+        raise AssertionError(f"ivfpq kernels launched C {launches}, A {other[0]}, B {other[1]} "
+                             f"times for {n_batches} batches")
+    if rec < 0.95:
+        raise AssertionError(f"ivfpq_1m recall@10 {rec} < 0.95")
+    os.environ["ZVDB_BUILD_TRACE"] = "1"   # one more build, its stages timed (syncs between)
+    try:
+        IVFPQIndex(cfg, device=dev).build(xd)
+    finally:
+        del os.environ["ZVDB_BUILD_TRACE"]
+    del xd
+
+    # kernel C on the main path's own inputs (the first batch's table and
+    # slots), held against its plain version
+    st = idx.state
+    c, _, cap = st.codes_blocks.shape
+    _, capp = PS.grouped_geometry(cap, cfg.l_bins, cfg.chunk)
+    qp = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(dev), cfg.metric)
+    p, qslot, _ = IV._probe_slots(st, qp, IVFPQ_SEARCH["nprobe"], cfg.group_slack,
+                                  cfg.scan_precision, cfg.metric)
+    lut = PQ.adc_lut(PQ.apply_rotation(qp, st.rot), st.codebooks)
+    live = int((qslot >= 0).sum())
+    ctx.report("ivfpq_1m geometry (first batch)",
+               f"C={c} cap={cap} capp={capp} q_cap={qslot.shape[1]}; live slots {live} of "
+               f"{qslot.numel()}, {qp.shape[0] * p - live} probe pairs dropped")
+    errs = {}
+    for precision in ("int8", "default", "high"):
+        errs[precision] = compare_grouped_case(
+            ctx, f"IVF-PQ main-path inputs B={lut.shape[0]} C={c} cap={cap} {precision}",
+            lut, qslot, st.codes_blocks, st.norms_blocks, cfg.l_bins, cfg.chunk, cfg.metric,
+            precision, cfg.per_bin)
+    return idx, ids, launches, lut, qslot, errs
+
+
+def phase_ivfpq_times(ctx: Ctx, idx, q1, lut, qslot):
+    from zvdb_tpu_torch.ops import pq_scan as PS
+    from zvdb_tpu_torch.ops.pq import unpack_nibbles
+
+    cfg, st = idx.cfg, idx.state
+    dev = ctx.device
+    b, n_sub, _ = lut.shape
+    c, nb, cap = st.codes_blocks.shape
+    qcap = qslot.shape[1]
+    _, capp = PS.grouped_geometry(cap, cfg.l_bins, cfg.chunk)
+    lw = cfg.per_bin * cfg.l_bins
+    kw = dict(l_bins=cfg.l_bins, chunk=cfg.chunk, metric=cfg.metric, per_bin=cfg.per_bin)
+    ms = {p: ctx.time_ms(lambda p=p: PS.pq_grouped_scan_bins(
+        lut, qslot, st.codes_blocks, st.norms_blocks, precision=p, **kw), reps=20)
+        for p in ("int8", "default", "high")}
+    plain_ms = ctx.time_ms(lambda: PS._pq_grouped_scan_bins_plain(
+        lut, qslot, st.codes_blocks, st.norms_blocks, cfg.l_bins, cfg.chunk, cfg.metric, "int8",
+        cfg.per_bin), reps=2)
+    # yardstick: the product part alone, torch.bmm of the slots' gathered
+    # bf16 tables [C, qcap, S*16] by a prebuilt one-hot of each padded block
+    # [C, S*16, capp]
+    codes = torch.zeros((c, nb, capp), dtype=torch.uint8, device=dev)
+    codes[:, :, :cap] = st.codes_blocks
+    oh = torch.empty((c, n_sub * 16, capp), dtype=torch.bfloat16, device=dev)
+    sixteen = torch.arange(16, device=dev, dtype=torch.uint8)
+    for c0 in range(0, c, 256):
+        cc = unpack_nibbles(codes[c0:c0 + 256].transpose(1, 2), n_sub)          # [cc, capp, S]
+        oh[c0:c0 + 256] = (cc[..., None] == sixteen).reshape(cc.shape[0], capp, -1) \
+            .transpose(1, 2).to(torch.bfloat16)
+    lutg = lut.reshape(b, -1)[qslot.clamp(min=0).long()].to(torch.bfloat16)
+    library_ms = ctx.time_ms(lambda: torch.bmm(lutg, oh), reps=10)
+    del oh, codes, lutg
+    # bound: each input read once, each output written once, against the
+    # int8 operations this batch's data needs (each live slot against its
+    # cluster's stored rows); the TPU kernel's own count is every slot
+    # against every padded position
+    live_rows = float(((qslot >= 0).sum(1).double() * st.counts.double()).sum())
+    ops = 2.0 * live_rows * n_sub * 16
+    ops_tpu = 2.0 * c * qcap * capp * n_sub * 16
+    nbytes = (b * n_sub * 16 + 4 * b + 4 * c * qcap + c * nb * cap + 4 * c * cap
+              + 8 * c * qcap * lw)
+    bound_ops, bound_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes)
+    shape = f"B={b} C={c} cap={cap} capp={capp} qcap={qcap} S={n_sub} L={cfg.l_bins} per_bin={cfg.per_bin}"
+    for p, t in ms.items():
+        ctx.report(f"ivfpq kernel ms ({p}, {shape})", t)
+    ctx.report("ivfpq plain version ms (int8)", plain_ms)
+    ctx.report("ivfpq torch.bmm yardstick ms (bf16 [C,qcap,S*16] x one-hot [C,S*16,capp])",
+               library_ms)
+    ctx.report("ivfpq bound ms (bytes / 3.35 TB/s vs live int8 ops / 1979 TOP/s)",
+               f"{bound_ms} (bytes {bound_bytes}: {nbytes} B, of which output "
+               f"{8 * c * qcap * lw}; ops {bound_ops}: {ops:.4g}; the TPU's count "
+               f"{ops_tpu:.4g} ops would take {ops_tpu / PEAK_INT8 * 1e3} ms)")
+    ctx.report("ivfpq_1m search QPS (batches of 2048, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs=IVFPQ_SEARCH))
+    ctx.report("ivfpq_1m server QPS (8 threads, requests of 16 queries)",
+               server_qps(ctx, idx, q1, search_kwargs=IVFPQ_SEARCH))
+    profile_search(ctx, idx, q1, label="ivfpq_1m", search_kwargs=IVFPQ_SEARCH)
+    return dict(ms=ms["int8"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -766,6 +1075,7 @@ def main() -> int:
     phase_build(ctx)
     phase_compare(ctx)
     phase_compare_pq(ctx)
+    phase_compare_ivfpq(ctx)
     x1, q1 = make_workload(ctx)
     flp, ids, launches, gt = phase_main(ctx, x1, q1)
     phase_server(ctx, flp, q1, ids)
@@ -774,6 +1084,10 @@ def main() -> int:
     pq_idx, pq_ids, pq_launches, lut, pq_errs = phase_pq_main(ctx, x1, q1, gt)
     phase_server(ctx, pq_idx, q1, pq_ids, label="pq_1m ")
     tp = phase_pq_times(ctx, pq_idx, q1, lut)
+    del pq_idx, lut
+    iv_idx, iv_ids, iv_launches, lut_c, qslot_c, iv_errs = phase_ivfpq_main(ctx, x1, q1, gt)
+    phase_server(ctx, iv_idx, q1, iv_ids, label="ivfpq_1m ", search_kwargs=IVFPQ_SEARCH)
+    tc = phase_ivfpq_times(ctx, iv_idx, q1, lut_c, qslot_c)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     record = {"kernels": [{
         "name": "flat_scan_bins",
@@ -799,6 +1113,18 @@ def main() -> int:
         "bound_ms": tp["bound_ms"],
         "bound_by": tp["bound_by"],
         "library_ms": tp["library_ms"],
+    }, {
+        "name": "pq_grouped_scan_bins",
+        "route": "cuda",
+        "source": "zvdb_tpu_torch/csrc/pq_scan.cu",
+        "replaces": "zvdb_tpu/ops/pallas_pq.py:336",
+        "launches": iv_launches,
+        "max_abs_err": iv_errs["int8"],
+        "ms": tc["ms"],
+        "plain_ms": tc["plain_ms"],
+        "bound_ms": tc["bound_ms"],
+        "bound_by": tc["bound_by"],
+        "library_ms": tc["library_ms"],
     }]}
     if ctx.rehearse:
         print(json.dumps(record))

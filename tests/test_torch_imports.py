@@ -16,7 +16,8 @@ import zvdb_tpu_torch
 import zvdb_tpu_torch.bench.harness, zvdb_tpu_torch.io.datasets, zvdb_tpu_torch.ops.flat_scan
 import zvdb_tpu_torch.index.flat, zvdb_tpu_torch.serve, zvdb_tpu_torch.utils.masks
 import zvdb_tpu_torch.ops.pq, zvdb_tpu_torch.ops.pq_scan, zvdb_tpu_torch.ops.cuda_build
-import zvdb_tpu_torch.index.pqflat
+import zvdb_tpu_torch.index.pqflat, zvdb_tpu_torch.index.ivfpq, zvdb_tpu_torch.index.ivf
+import zvdb_tpu_torch.index.knn_graph, zvdb_tpu_torch.utils.filter_policy
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(bad)

@@ -13,8 +13,9 @@ unless the caller passes device="cpu".
 
 from .utils.config import FlatConfig, PQConfig
 from .index.flat import FlatIndex, exact_ground_truth
+from .index.ivfpq import IVFPQConfig, IVFPQIndex
 from .index.pqflat import PQFlatIndex
 from .serve import SearchServer
 
-__all__ = ["FlatConfig", "FlatIndex", "PQConfig", "PQFlatIndex", "SearchServer",
-           "exact_ground_truth"]
+__all__ = ["FlatConfig", "FlatIndex", "IVFPQConfig", "IVFPQIndex", "PQConfig", "PQFlatIndex",
+           "SearchServer", "exact_ground_truth"]

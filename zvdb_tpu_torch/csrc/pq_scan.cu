@@ -55,8 +55,42 @@
 // and a B that is no multiple of QT are masked here, with no padded copy.
 //
 // The per-row ADC sums (adc_row_int8, adc_row_f32) and the fold (fold_row)
-// are device functions, so a (cluster, chunk) grid for the grouped IVF-PQ
-// scan can call them from a second entry point.
+// are device functions, shared with the second entry point below.
+//
+// Kernel C: the grouped IVF-PQ probe scan (zvdb_pq_grouped_scan_bins).
+// Replaces zvdb_tpu/ops/pallas_pq.py:pq_grouped_scan_bins, which runs the
+// same _pq_kernel over a (cluster, cap-chunk) grid. Cluster c's codes are
+// codes_blocks[c] = [S/2, cap] (the flat layout with cap rows), its norms
+// norms_blocks[c] (+inf = empty or tombstoned), and qslot[c] = [qcap] lists
+// the queries that probed it (-1 = empty slot). Row `pos` of cluster c
+// falls in bin pos % L; out[c, slot] holds per-bin positions within the
+// cluster, not ids. Rows are folded in increasing position with the TPU's tie
+// rules, and the scores come from the same adc_row_* / score calls as the
+// flat scan, so for a slot they equal kernel B's on that cluster bit for bit.
+//
+// What bounds it. A batch scores each cluster against its qcap slots: the
+// TPU counted that as a one-hot product of 2*C*qcap*capp*S*16 operations
+// (2.7e11 at C=4096, qcap=32, capp=1024, S=16: 0.14 ms at the int8
+// tensor-core rate), and the output is C*qcap*PER_BIN*L*8 bytes (0.54 GB at
+// per_bin=2, L=256: 0.16 ms at 3.35 TB/s), so bytes bind; most of that
+// output belongs to empty slots (about B*P live of C*qcap). The work done is
+// small: about cap/L rows per bin per cluster against staging the slot
+// tile's table, so launch and latency, not lookups, set the time of this
+// first version.
+//
+// What the design does about it. One block owns one (cluster, tile of QT
+// slots, slice of <= 256 bins): the cluster sits on gridDim.x (C passes the
+// 65535 that y and z allow at 30M rows). Each thread owns one bin and walks
+// positions l, l+L, ... below cap with (s1, i1, s2, i2) for the tile's QT
+// slots in registers, as in the flat scan: no merge, no atomics. Positions
+// from cap up to the JAX wrapper's padded capp are never read (their +inf
+// norms are never taken), so no padded copy is made. The block gathers its
+// live slots' rows of the quantized table from lut [B, S, 16] into shared
+// memory itself (JAX materializes a [C*qcap, S*16] copy); an empty slot
+// stages zero entries (128 in the biased int8 pair word). A tile with no
+// live slot skips staging and the walk. The kernel writes the whole output:
+// empty slots, and every slot of an empty tile, get +inf / -1 here, not in
+// the wrapper.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -291,6 +325,159 @@ int launch_prec(int per_bin, dim3 grid, int threads, size_t smem, cudaStream_t s
                          out_i, B, N, n_sub, L, seg_len, factor);
 }
 
+template <int PREC, int PER_BIN>
+__global__ void __launch_bounds__(MAX_THREADS)
+pq_grouped_scan_kernel(const void* __restrict__ lut_in, const float* __restrict__ scales,
+                       const int* __restrict__ qslot, const uint8_t* __restrict__ codes_blocks,
+                       const float* __restrict__ norms_blocks, float* __restrict__ out_s,
+                       int* __restrict__ out_i, int B, int qcap, int cap, int n_sub, int L,
+                       float factor) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sc = n_sub * 16;
+  unsigned* lut_w = reinterpret_cast<unsigned*>(smem);        // INT8 pair words
+  float* lut_f = reinterpret_cast<float*>(smem);              // f32 planes
+  float* scl = reinterpret_cast<float*>(smem) + lut_words<PREC>(sc);   // [QT]
+  int* slot_q = reinterpret_cast<int*>(scl + QT);             // [QT] query per slot, -1 empty
+
+  const long long c = blockIdx.x;
+  const int t0 = blockIdx.y * QT;                          // first slot of the tile
+  const int l = blockIdx.z * blockDim.x + threadIdx.x;     // this thread's bin
+  const int lw = PER_BIN * L;
+  const float inf = __int_as_float(0x7f800000);
+
+  if (threadIdx.x < QT) {
+    const int slot = t0 + threadIdx.x;
+    const int b = slot < qcap ? qslot[c * qcap + slot] : -1;
+    slot_q[threadIdx.x] = (b >= 0 && b < B) ? b : -1;
+  }
+  __syncthreads();
+  bool live = false;   // read from shared memory by every thread: a uniform branch
+#pragma unroll
+  for (int q = 0; q < QT; ++q) live |= slot_q[q] >= 0;
+  if (!live) {
+    if (l < L) {
+      for (int q = 0; q < QT && t0 + q < qcap; ++q) {
+        const long long o = (c * qcap + t0 + q) * lw + l;
+        out_s[o] = inf;
+        out_i[o] = -1;
+        if constexpr (PER_BIN == 2) {
+          out_s[o + L] = inf;
+          out_i[o + L] = -1;
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (PREC == kInt8) {
+    const int8_t* lut8 = static_cast<const int8_t*>(lut_in);
+    for (int e = threadIdx.x; e < QT / 2 * sc; e += blockDim.x) {
+      const int p = e / sc, k = e % sc;
+      const int b0 = slot_q[2 * p], b1 = slot_q[2 * p + 1];
+      const unsigned lo = b0 >= 0 ? (unsigned)((int)lut8[(long long)b0 * sc + k] + 128) : 128u;
+      const unsigned hi = b1 >= 0 ? (unsigned)((int)lut8[(long long)b1 * sc + k] + 128) : 128u;
+      lut_w[e] = lo | (hi << 16);
+    }
+  } else {
+    constexpr int P = PREC == kHigh ? 2 : 1;
+    const float* lut32 = static_cast<const float*>(lut_in);
+    for (int e = threadIdx.x; e < QT * sc; e += blockDim.x) {
+      const int q = e / sc, k = e % sc;
+      const int b = slot_q[q];
+      const float v = b >= 0 ? lut32[(long long)b * sc + k] : 0.f;
+      const float hi = bf16_round(v);
+      lut_f[q * P * sc + k] = hi;
+      if constexpr (PREC == kHigh) lut_f[q * P * sc + sc + k] = bf16_round(v - hi);
+    }
+  }
+  if (threadIdx.x < QT) {
+    const int b = slot_q[threadIdx.x];
+    scl[threadIdx.x] = (PREC == kInt8 && b >= 0) ? scales[b] : 1.f;
+  }
+  __syncthreads();
+  if (l >= L) return;
+
+  float s1[QT], s2[QT];
+  int i1[QT], i2[QT];
+#pragma unroll
+  for (int q = 0; q < QT; ++q) {
+    s1[q] = inf;
+    s2[q] = inf;
+    i1[q] = -1;
+    i2[q] = -1;
+  }
+  float scale[QT];   // INT8 dequantization scales (unused otherwise)
+#pragma unroll
+  for (int q = 0; q < QT; ++q) scale[q] = scl[q];
+
+  const int nb = n_sub / 2;
+  const uint8_t* codes_c = codes_blocks + c * nb * (long long)cap;   // [S/2, cap]
+  const float* norms_c = norms_blocks + c * (long long)cap;
+  for (int pos = l; pos < cap; pos += L) {
+    const float nrm = __ldg(norms_c + pos);
+    if (nrm == inf) continue;   // empty or tombstoned row: +inf, never taken
+    if constexpr (PREC == kInt8) {
+      unsigned acc[QT / 2];
+      adc_row_int8(lut_w, sc, codes_c, cap, pos, nb, acc);
+#pragma unroll
+      for (int q = 0; q < QT; ++q) {
+        const float dots = __fmul_rn(__int2float_rn(int8_sum(acc, q, n_sub)), scale[q]);
+        fold_row<PER_BIN>(score(dots, nrm, factor), pos, s1[q], i1[q], s2[q], i2[q]);
+      }
+    } else {
+      float acc[QT], acc_lo[QT];
+      adc_row_f32<PREC>(lut_f, sc, codes_c, cap, pos, nb, acc, acc_lo);
+#pragma unroll
+      for (int q = 0; q < QT; ++q) {
+        const float dots = PREC == kHigh ? __fadd_rn(acc[q], acc_lo[q]) : acc[q];
+        fold_row<PER_BIN>(score(dots, nrm, factor), pos, s1[q], i1[q], s2[q], i2[q]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int q = 0; q < QT; ++q) {
+    if (t0 + q >= qcap) continue;
+    const bool empty = slot_q[q] < 0;
+    const long long o = (c * qcap + t0 + q) * lw + l;
+    out_s[o] = empty ? inf : s1[q];
+    out_i[o] = empty ? -1 : i1[q];
+    if constexpr (PER_BIN == 2) {
+      out_s[o + L] = empty ? inf : s2[q];
+      out_i[o + L] = empty ? -1 : i2[q];
+    }
+  }
+}
+
+template <int PREC, int PER_BIN>
+int launch_grouped(dim3 grid, int threads, size_t smem, cudaStream_t stream, const void* lut,
+                   const float* scales, const int* qslot, const uint8_t* codes_blocks,
+                   const float* norms_blocks, float* out_s, int* out_i, int B, int qcap,
+                   int cap, int n_sub, int L, float factor) {
+  auto kernel = pq_grouped_scan_kernel<PREC, PER_BIN>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, threads, smem, stream>>>(lut, scales, qslot, codes_blocks, norms_blocks, out_s,
+                                          out_i, B, qcap, cap, n_sub, L, factor);
+  return (int)cudaGetLastError();
+}
+
+template <int PREC>
+int launch_grouped_prec(int per_bin, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                        const void* lut, const float* scales, const int* qslot,
+                        const uint8_t* codes_blocks, const float* norms_blocks, float* out_s,
+                        int* out_i, int B, int qcap, int cap, int n_sub, int L, float factor) {
+  if (per_bin == 1)
+    return launch_grouped<PREC, 1>(grid, threads, smem, stream, lut, scales, qslot,
+                                   codes_blocks, norms_blocks, out_s, out_i, B, qcap, cap,
+                                   n_sub, L, factor);
+  return launch_grouped<PREC, 2>(grid, threads, smem, stream, lut, scales, qslot, codes_blocks,
+                                 norms_blocks, out_s, out_i, B, qcap, cap, n_sub, L, factor);
+}
+
 }  // namespace
 
 // Launches the scan on `stream`; returns a CUDA error code (0 on success).
@@ -331,5 +518,49 @@ extern "C" int zvdb_pq_scan_bins(const void* lut, const void* scales, const void
     default:
       return launch_prec<kDefault>(per_bin, grid, threads, smem, s, lut, scl, c, nr, os, oi, B,
                                    N, n_sub, L, seg_len, factor);
+  }
+}
+
+// Launches the grouped scan on `stream`; returns a CUDA error code (0 on
+// success). lut [B, S, 16]: int8 (precision 2, S <= 256) or f32 (0 default,
+// 1 high); scales [B] f32 (read for int8 only); qslot [C, qcap] int32, a
+// query in [0, B) or -1 (anything else reads as empty); codes_blocks
+// [C, S/2, cap] uint8; norms_blocks [C, cap] f32; out_s [C, qcap, per_bin*L]
+// f32 and out_i the same int32, every element written. Every array
+// contiguous on the device. Allocates nothing, does not sync.
+extern "C" int zvdb_pq_grouped_scan_bins(const void* lut, const void* scales, const void* qslot,
+                                         const void* codes_blocks, const void* norms_blocks,
+                                         void* out_s, void* out_i, int B, int C, int qcap,
+                                         int cap, int n_sub, int L, float factor, int precision,
+                                         int per_bin, void* stream) {
+  if (B <= 0 || C <= 0 || qcap <= 0 || cap < 0 || L <= 0 || n_sub <= 0 || n_sub % 2 != 0 ||
+      precision < 0 || precision > 2 || per_bin < 1 || per_bin > 2 ||
+      (precision == kInt8 && n_sub > 256))
+    return (int)cudaErrorInvalidValue;
+  const int threads = L < MAX_THREADS ? ((L + 31) / 32) * 32 : MAX_THREADS;
+  const dim3 grid(C, (qcap + QT - 1) / QT, (L + threads - 1) / threads);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const int sc = n_sub * 16;
+  const int words = precision == kInt8 ? lut_words<kInt8>(sc)
+                    : precision == kHigh ? lut_words<kHigh>(sc) : lut_words<kDefault>(sc);
+  const size_t smem = ((size_t)words + 2 * QT) * 4;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qs = static_cast<const int*>(qslot);
+  const uint8_t* cb = static_cast<const uint8_t*>(codes_blocks);
+  const float* scl = static_cast<const float*>(scales);
+  const float* nrm = static_cast<const float*>(norms_blocks);
+  float* os = static_cast<float*>(out_s);
+  int* oi = static_cast<int*>(out_i);
+  switch (precision) {
+    case kInt8:
+      return launch_grouped_prec<kInt8>(per_bin, grid, threads, smem, s, lut, scl, qs, cb, nrm,
+                                        os, oi, B, qcap, cap, n_sub, L, factor);
+    case kHigh:
+      return launch_grouped_prec<kHigh>(per_bin, grid, threads, smem, s, lut, scl, qs, cb, nrm,
+                                        os, oi, B, qcap, cap, n_sub, L, factor);
+    default:
+      return launch_grouped_prec<kDefault>(per_bin, grid, threads, smem, s, lut, scl, qs, cb,
+                                           nrm, os, oi, B, qcap, cap, n_sub, L, factor);
   }
 }
