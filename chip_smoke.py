@@ -6,9 +6,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device     - the card's name, count and power limit (nvidia-smi);
-  2. build      - nvcc builds zvdb_tpu_torch/csrc/flat_scan.cu and
-                  csrc/pq_scan.cu (kernels B and C, one library) for sm_90a,
-                  both at once;
+  2. build      - nvcc builds zvdb_tpu_torch/csrc/flat_scan.cu (kernels A
+                  and D, one library) and csrc/pq_scan.cu (kernels B and C)
+                  for sm_90a, both at once;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
                   over a grid of shapes, every precision and metric,
                   tie-aware; pq_scan over every precision x {l2, dot} x
@@ -50,7 +50,29 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. ivfpq server - a SearchServer over the IVF-PQ index, as in phase 5;
  12. ivfpq times - kernel C in every precision, its plain version, the
                   torch.bmm yardstick, bound, search and server QPS, and a
-                  torch.profiler breakdown of a search batch.
+                  torch.profiler breakdown of a search batch;
+ 13. block compare - kernel D (block_bins, the graph build's block scorer,
+                  the second entry point of flat_scan.cu) against its plain
+                  version over every precision x {l2, dot} with invalid
+                  slots and a ragged B, B < L, the tie rule (duplicated
+                  rows: the lower column wins, the own column never) and the
+                  main path's shape [12, 1640, 128], tie-aware;
+ 14. cagra main - the cagra_1m configuration (the same corpus and queries,
+                  CagraConfig(dim=128, degree=32, n_anchors=250000,
+                  search_degree=24, max_iters=4, ef_search=12,
+                  block_topk="pallas")) built from rows on the device
+                  (points/s, peak device memory, kernel D's launches per
+                  build against ceil(c_blocks/cc) summed over the passes, a
+                  traced build's stages) and searched in batches of 2048
+                  (recall@10 >= 0.95, no kernel launched by search, an ef
+                  sweep); kernel D on the build's own first chunk against
+                  its plain version in every precision;
+ 15. cagra server - a SearchServer over the CAGRA index, as in phase 5
+                  (answers may differ from the batched search on near-ties
+                  only: cuBLAS picks its kernels by batch size);
+ 16. cagra times - kernel D in every precision at the build's shape, its
+                  plain version, the torch.bmm yardstick, bound, search and
+                  server QPS, and a torch.profiler breakdown of a search batch.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -134,6 +156,7 @@ def phase_device(ctx: Ctx):
 
 
 def phase_build(ctx: Ctx):
+    from zvdb_tpu_torch.ops import block_scan as BS
     from zvdb_tpu_torch.ops import flat_scan as FS
     from zvdb_tpu_torch.ops import pq_scan as PS
 
@@ -145,7 +168,8 @@ def phase_build(ctx: Ctx):
         for fut in [pool.submit(m.build) for m in (FS, PS)]:
             fut.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
-    ctx.report("build seconds (flat_scan.cu and pq_scan.cu in parallel; three kernels)",
+    BS.build()                            # kernel D: the second entry point of flat_scan.cu
+    ctx.report("build seconds (flat_scan.cu and pq_scan.cu in parallel; four kernels)",
                round(time.perf_counter() - t0, 2))
     for mod in (FS, PS):
         info = mod.build_info
@@ -343,7 +367,11 @@ def phase_main(ctx: Ctx, x1, q1):
     return flp, ids, launches, gt
 
 
-def phase_server(ctx: Ctx, flp, q1, ids, label: str = "", search_kwargs=APPROX):
+def phase_server(ctx: Ctx, flp, q1, ids, label: str = "", search_kwargs=APPROX,
+                 max_differ: float = 0.0):
+    """400 requests from 8 threads through a SearchServer; each answer must
+    equal the batched search's ids, or differ on at most a `max_differ`
+    share of the queries."""
     from zvdb_tpu_torch import SearchServer
 
     n_req = 400
@@ -379,7 +407,7 @@ def phase_server(ctx: Ctx, flp, q1, ids, label: str = "", search_kwargs=APPROX):
         bad += int((got != want).any(axis=1).sum())
     ctx.report(f"{label}server requests answered", f"{n_req} requests, {int(sizes.sum())} "
                f"queries, {bad} queries differ from the batched search")
-    if bad:
+    if bad > max_differ * sizes.sum():
         raise AssertionError(f"{bad} server answers differ from the batched search")
 
 
@@ -1058,6 +1086,218 @@ def phase_ivfpq_times(ctx: Ctx, idx, q1, lut, qslot):
     return dict(ms=ms["int8"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes")
 
+# ---------------------------------------------------------------------------
+# CAGRA: kernel D (block_bins) and the cagra_1m main path
+
+def check_block_bins(v, vn, l_bins, metric, precision, ks, ki, ps, pi, label):
+    """Tie-aware agreement of kernel D's bins with its plain version's: per
+    block, check_bins with the block as both queries and corpus, and no row
+    ever takes its own column. Returns the largest |kernel - plain|."""
+    if bool((ki.long() == torch.arange(v.shape[1], device=ki.device)[None, :, None]).any()):
+        raise AssertionError(f"{label}: a row took its own column")
+    err = 0.0
+    for c in range(v.shape[0]):
+        err = max(err, check_bins(v[c], v[c], vn[c], l_bins, metric, precision, ks[c], ki[c],
+                                  ps[c], pi[c], f"{label} block {c}"))
+    return err
+
+
+def compare_block_case(ctx, label, v, vn, l_bins, metric, precision):
+    from zvdb_tpu_torch.ops import block_scan as BS
+
+    ks, ki = BS.block_bins(v, vn, l_bins=l_bins, bq=2 * l_bins, metric=metric,
+                           precision=precision)
+    ps, pi = BS.block_bins_plain(v, vn, l_bins, metric, precision)
+    ctx.sync()
+    err = check_block_bins(v, vn, l_bins, metric, precision, ks, ki, ps, pi, label)
+    print(f"  compare {label}: ok, max |kernel - plain| = {err:.3g}", flush=True)
+    return err
+
+
+def block_inputs(rng, cc, b, d, metric, dev, invalid_every=0):
+    v = rng.standard_normal((cc, b, d)).astype(np.float32)
+    vn = (v * v).sum(-1) if metric == "l2" else np.zeros((cc, b), np.float32)
+    vn = vn.astype(np.float32)
+    if invalid_every:
+        vn.reshape(-1)[::invalid_every] = np.inf
+    return torch.from_numpy(v).to(dev), torch.from_numpy(vn).to(dev)
+
+
+def phase_compare_block(ctx: Ctx):
+    from zvdb_tpu_torch.ops import block_scan as BS
+
+    rng = np.random.default_rng(543)
+    dev = ctx.device
+    # (cc, B, D, L, metric, precision, invalid_every)
+    cases = [(3, 700, 40, 128, metric, precision, 7)            # B no multiple of 256
+             for precision in ("highest", "high", "default") for metric in ("l2", "dot")]
+    cases += [(1, 40, 16, 128, "l2", "high", 9),                  # B < L: empty bins
+              (2, 1000, 130, 64, "dot", "default", 0)]            # D > 128
+    if not ctx.rehearse:   # the main path's shape
+        cases.append((12, 1640, 128, 128, "l2", "high", 11))
+
+    # the tie rule: rows L..2L-1 repeat rows 0..L-1, so for row r every bin
+    # l != r holds two equal columns (the lower wins) and bin r the row's
+    # own column (never taken) and its copy r+L
+    for precision in ("highest", "high", "default"):
+        v, vn = block_inputs(rng, 2, 128, 40, "l2", dev)
+        v, vn = torch.cat([v, v], dim=1), torch.cat([vn, vn], dim=1)
+        _, ki = BS.block_bins(v, vn, l_bins=128, bq=256, precision=precision)
+        want = torch.arange(128, device=dev, dtype=torch.int32).expand(2, 256, 128).clone()
+        r = torch.arange(128, device=dev)
+        want[:, r, r] = r.to(torch.int32) + 128
+        if not torch.equal(ki, want):
+            raise AssertionError(f"block tie rule broken ({precision})")
+    print("  compare block tie rule (duplicated rows, every precision): ok", flush=True)
+    for cc, b, d, l_bins, metric, precision, inv in cases:
+        v, vn = block_inputs(rng, cc, b, d, metric, dev, invalid_every=inv)
+        compare_block_case(ctx, f"block cc={cc} B={b} D={d} L={l_bins} {metric} {precision}",
+                           v, vn, l_bins, metric, precision)
+
+
+CAGRA_SEARCH: dict = {}   # cagra_1m searches with the config's ef_search=12
+
+
+def cagra_config(ctx: Ctx):
+    from zvdb_tpu_torch import CagraConfig
+
+    # the bench row's n_anchors = min(262144, n // 4)
+    return CagraConfig(dim=ctx.dim, degree=32, metric="l2", n_anchors=min(262144, ctx.n // 4),
+                       search_degree=24, max_iters=4, ef_search=12, block_topk="pallas")
+
+
+def kernel_counts():
+    from zvdb_tpu_torch.ops import block_scan as BS
+    from zvdb_tpu_torch.ops import flat_scan as FS
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    return dict(A=FS.flat_scan_bins.launches, B=PS.pq_scan_bins.launches,
+                C=PS.pq_grouped_scan_bins.launches, D=BS.block_bins.launches)
+
+
+def reset_kernel_counts():
+    from zvdb_tpu_torch.ops import block_scan as BS
+    from zvdb_tpu_torch.ops import flat_scan as FS
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    FS.flat_scan_bins.launches = PS.pq_scan_bins.launches = 0
+    PS.pq_grouped_scan_bins.launches = BS.block_bins.launches = 0
+
+
+def phase_cagra_main(ctx: Ctx, x1, q1, gt):
+    from zvdb_tpu_torch import CagraIndex
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+
+    dev = ctx.device
+    cfg = cagra_config(ctx)
+    ctx.report("cagra_1m config", cfg)
+    n_batches = -(-q1.shape[0] // ctx.batch)
+    xd = torch.from_numpy(x1).to(dev)
+    ctx.sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    # the main path: build, then search every batch; counts read after each
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    idx = CagraIndex(cfg, device=dev)
+    idx.build(xd)
+    ctx.sync()
+    build_s = time.perf_counter() - t0
+    after_build = kernel_counts()
+    ids = batched_ids(ctx, idx, q1, **CAGRA_SEARCH)
+    ctx.sync()
+    after_search = kernel_counts()
+    lb = idx.build_stats
+    expected = sum(-(-cb // lb["cc"]) for cb in lb["c_blocks"])
+    rec = recall_at_k(ids, gt, K)
+    ctx.report("cagra_1m build points/s (first build, rows already on the device)",
+               ctx.n / build_s)
+    ctx.report("cagra_1m build geometry", f"c={lb['c']} bcap={lb['bcap']} cc={lb['cc']} "
+               f"kc={lb['kc']} blocks per pass {lb['c_blocks']}")
+    ctx.report("cagra_1m kernel launches", f"build: block_bins {after_build['D']} (expected "
+               f"sum of ceil(c_blocks/cc) = {expected}); A {after_build['A']}, B "
+               f"{after_build['B']}, C {after_build['C']}; search of {n_batches} batches: "
+               f"{ {k: after_search[k] - after_build[k] for k in after_search} }")
+    ctx.report("cagra_1m recall@10 (ef=12)", rec)
+    if dev.type == "cuda":
+        ctx.report("cagra_1m peak device memory GB (build + search, max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    if not ctx.rehearse and (after_build["D"] != expected or after_build["A"]
+                             or after_build["B"] or after_build["C"]):
+        raise AssertionError(f"build launched {after_build}, expected D={expected} only")
+    if after_search != after_build:
+        raise AssertionError(f"search launched kernels: {after_build} -> {after_search}")
+    if rec < 0.95:
+        raise AssertionError(f"cagra_1m recall@10 {rec} < 0.95")
+    for ef in (16, 24):
+        ctx.report(f"cagra_1m recall@10 (ef={ef})",
+                   recall_at_k(batched_ids(ctx, idx, q1, ef_search=ef), gt, K))
+
+    # one more build with its stages timed (a sync between stages)
+    os.environ["ZVDB_BUILD_TRACE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        CagraIndex(cfg, device=dev).build(xd)
+        ctx.sync()
+        ctx.report("cagra_1m traced build points/s", ctx.n / (time.perf_counter() - t0))
+    finally:
+        del os.environ["ZVDB_BUILD_TRACE"]
+
+    # kernel D on the main-path build's own first chunk (the last pass),
+    # held against its plain version
+    bp = lb["first_chunk"]
+    valid = bp >= 0
+    safe = bp.clamp(min=0).long()
+    v = xd[safe]
+    vn = torch.where(valid, (xd * xd).sum(-1)[safe], float("inf"))
+    errs = {}
+    for precision in ("high", "default", "highest"):
+        errs[precision] = compare_block_case(
+            ctx, f"block main-path chunk {tuple(v.shape)} {precision}", v, vn, 128, "l2",
+            precision)
+    del xd
+    return idx, ids, after_build["D"], (v, vn), errs
+
+
+def phase_cagra_times(ctx: Ctx, idx, q1, chunk):
+    from zvdb_tpu_torch.ops import block_scan as BS
+
+    v, vn = chunk
+    cc, b, d = v.shape
+    L = 128
+    ms = {p: ctx.time_ms(lambda p=p: BS.block_bins(v, vn, l_bins=L, bq=256, precision=p),
+                         reps=20)
+          for p in ("high", "default", "highest")}
+    plain_ms = ctx.time_ms(lambda: BS.block_bins_plain(v, vn, L, "l2", "high"), reps=5)
+    vb = v.to(torch.bfloat16)
+    library_ms = ctx.time_ms(lambda: torch.bmm(vb, vb.transpose(1, 2)), reps=20)
+    f32_ms = ctx.time_ms(lambda: torch.bmm(v, v.transpose(1, 2)), reps=10)
+    del vb
+    ops = 2.0 * cc * b * b * d
+    nbytes = cc * b * d * 4 + cc * b * 4 + cc * b * L * 8
+    bound_ops, bound_bytes = 3 * ops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes)
+    shape = f"cc={cc} B={b} D={d} L={L}"
+    for p, t in ms.items():
+        ctx.report(f"block kernel ms ({p}, {shape})", t)
+    ctx.report("block kernel achieved TFLOP/s (high, counting its 3 products)",
+               3 * ops / (ms["high"] * 1e-3) / 1e12)
+    ctx.report("block plain version ms (high)", plain_ms)
+    ctx.report("block torch.bmm yardstick ms (bf16 [cc,B,D] x [cc,D,B], one product)", library_ms)
+    ctx.report("block torch.bmm f32 ms (same shapes, TF32 off)", f32_ms)
+    ctx.report("block bound ms (high: 3 bf16 products / 989 TFLOP/s vs bytes / 3.35 TB/s)",
+               f"{bound_ms} (ops {bound_ops}, bytes {bound_bytes}; default "
+               f"{max(ops / PEAK_BF16 * 1e3, bound_bytes)}, highest "
+               f"{max(ops / PEAK_F32 * 1e3, bound_bytes)})")
+    ctx.report("cagra_1m search QPS (batches of 2048, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs=CAGRA_SEARCH))
+    ctx.report("cagra_1m server QPS (8 threads, requests of 16 queries)",
+               server_qps(ctx, idx, q1, search_kwargs=CAGRA_SEARCH))
+    profile_search(ctx, idx, q1, label="cagra_1m", search_kwargs=CAGRA_SEARCH)
+    return dict(ms=ms["high"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1076,6 +1316,7 @@ def main() -> int:
     phase_compare(ctx)
     phase_compare_pq(ctx)
     phase_compare_ivfpq(ctx)
+    phase_compare_block(ctx)
     x1, q1 = make_workload(ctx)
     flp, ids, launches, gt = phase_main(ctx, x1, q1)
     phase_server(ctx, flp, q1, ids)
@@ -1088,6 +1329,11 @@ def main() -> int:
     iv_idx, iv_ids, iv_launches, lut_c, qslot_c, iv_errs = phase_ivfpq_main(ctx, x1, q1, gt)
     phase_server(ctx, iv_idx, q1, iv_ids, label="ivfpq_1m ", search_kwargs=IVFPQ_SEARCH)
     tc = phase_ivfpq_times(ctx, iv_idx, q1, lut_c, qslot_c)
+    del iv_idx, lut_c, qslot_c
+    cg_idx, cg_ids, cg_launches, chunk, cg_errs = phase_cagra_main(ctx, x1, q1, gt)
+    phase_server(ctx, cg_idx, q1, cg_ids, label="cagra_1m ", search_kwargs=CAGRA_SEARCH,
+                 max_differ=0.01)
+    td = phase_cagra_times(ctx, cg_idx, q1, chunk)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     record = {"kernels": [{
         "name": "flat_scan_bins",
@@ -1125,6 +1371,18 @@ def main() -> int:
         "bound_ms": tc["bound_ms"],
         "bound_by": tc["bound_by"],
         "library_ms": tc["library_ms"],
+    }, {
+        "name": "block_bins",
+        "route": "cuda",
+        "source": "zvdb_tpu_torch/csrc/flat_scan.cu",
+        "replaces": "zvdb_tpu/ops/pallas_block.py:90",
+        "launches": cg_launches,
+        "max_abs_err": cg_errs["high"],
+        "ms": td["ms"],
+        "plain_ms": td["plain_ms"],
+        "bound_ms": td["bound_ms"],
+        "bound_by": td["bound_by"],
+        "library_ms": td["library_ms"],
     }]}
     if ctx.rehearse:
         print(json.dumps(record))

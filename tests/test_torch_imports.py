@@ -18,6 +18,8 @@ import zvdb_tpu_torch.index.flat, zvdb_tpu_torch.serve, zvdb_tpu_torch.utils.mas
 import zvdb_tpu_torch.ops.pq, zvdb_tpu_torch.ops.pq_scan, zvdb_tpu_torch.ops.cuda_build
 import zvdb_tpu_torch.index.pqflat, zvdb_tpu_torch.index.ivfpq, zvdb_tpu_torch.index.ivf
 import zvdb_tpu_torch.index.knn_graph, zvdb_tpu_torch.utils.filter_policy
+import zvdb_tpu_torch.ops.block_scan, zvdb_tpu_torch.index.build, zvdb_tpu_torch.index.hnsw
+import zvdb_tpu_torch.index.cagra
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(bad)

@@ -1,10 +1,11 @@
 """zvdb-tpu on PyTorch and CUDA: the port of `zvdb_tpu` to an NVIDIA H100.
 
 The JAX package `zvdb_tpu` stays the reference; this package imports none of
-it and no JAX. Ported so far: the flat engine, the PQ engine and the server
-in front of them.
+it and no JAX. Ported so far: the flat, PQ, IVF-PQ and CAGRA engines and the
+server in front of them.
 
-    from zvdb_tpu_torch import (FlatConfig, FlatIndex, PQConfig, PQFlatIndex,
+    from zvdb_tpu_torch import (CagraConfig, CagraIndex, FlatConfig, FlatIndex,
+                                IVFPQConfig, IVFPQIndex, PQConfig, PQFlatIndex,
                                 SearchServer, exact_ground_truth)
 
 Entry points run on the GPU (device=None means "cuda") and raise without one
@@ -12,10 +13,11 @@ unless the caller passes device="cpu".
 """
 
 from .utils.config import FlatConfig, PQConfig
+from .index.cagra import CagraConfig, CagraIndex
 from .index.flat import FlatIndex, exact_ground_truth
 from .index.ivfpq import IVFPQConfig, IVFPQIndex
 from .index.pqflat import PQFlatIndex
 from .serve import SearchServer
 
-__all__ = ["FlatConfig", "FlatIndex", "IVFPQConfig", "IVFPQIndex", "PQConfig", "PQFlatIndex",
-           "SearchServer", "exact_ground_truth"]
+__all__ = ["CagraConfig", "CagraIndex", "FlatConfig", "FlatIndex", "IVFPQConfig", "IVFPQIndex",
+           "PQConfig", "PQFlatIndex", "SearchServer", "exact_ground_truth"]

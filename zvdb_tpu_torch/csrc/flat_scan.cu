@@ -37,6 +37,19 @@
 // (blockIdx.x walks the query tiles) so they read the same rows out of L2.
 // Inputs are read in their storage type (f32 or bf16) with any N and D; the
 // ragged edges are masked here, so no padded copy of the corpus is made.
+//
+// Second entry point, zvdb_block_bins: the graph build's block scorer.
+// Replaces zvdb_tpu/ops/pallas_block.py:_kernel (wrapper block_bins). For a
+// batch of cc blocks of B rows each, every row is scored against every row of
+// its own block, the self-pair (the diagonal) excluded, and folded into the
+// same [L] modular-bin minima by column m*L + l, ids -1 where a bin saw no
+// finite score. It is the walk above with the block as both the queries and
+// the corpus: blockIdx.z picks the block, and the fold skips row == column.
+// Work per launch is 2*cc*B*B*D operations per product (three products for
+// "high"), against cc*B*D*4 bytes read and cc*B*L*8 written: about 400
+// operations per byte at the build's shape (cc=12, B=1640, D=128, L=128), so
+// it is bound by arithmetic, like kernel A. The TPU pads B to a multiple of
+// its row tile and D to 128; here both edges are masked instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,13 +73,24 @@ __device__ __forceinline__ float bf16_round(float v) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <int PREC, typename T>
+// BLOCK = false: kernel A (one query batch against one corpus).
+// BLOCK = true: kernel D (blockIdx.z picks a block whose B = N rows are both
+// the queries and the corpus; the diagonal is skipped).
+template <int PREC, bool BLOCK, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 scan_bins_kernel(const float* __restrict__ q, const T* __restrict__ x,
                  const float* __restrict__ norms, float* __restrict__ out_s,
                  int* __restrict__ out_i, int B, int N, int D, int L,
                  float factor) {
   constexpr int NOP = (PREC == kHigh) ? 2 : 1;   // operand planes per side
+  if constexpr (BLOCK) {
+    const long long z = blockIdx.z;
+    q += z * B * D;
+    x += z * N * D;
+    norms += z * N;
+    out_s += z * B * L;
+    out_i += z * B * L;
+  }
   __shared__ __align__(16) float qs[NOP * DK * QSTRIDE];
   __shared__ __align__(16) float xs[NOP * DK * XSTRIDE];
 
@@ -154,7 +178,7 @@ scan_bins_kernel(const float* __restrict__ q, const T* __restrict__ x,
     }
 
     // fold step m into the running bin minima: strict <, so the lower row
-    // (the earlier m) keeps a tie
+    // (the earlier m) keeps a tie; kernel D never takes a row's own column
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int r = tx * TN + j;
@@ -163,7 +187,8 @@ scan_bins_kernel(const float* __restrict__ q, const T* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const float s = nrm - factor * acc[i][j];
-        if (s < best_s[i][j]) {
+        const bool self = BLOCK && c == b0 + ty * TM + i;
+        if (s < best_s[i][j] && !self) {
           best_s[i][j] = s;
           best_i[i][j] = (int)c;
         }
@@ -180,26 +205,28 @@ scan_bins_kernel(const float* __restrict__ q, const T* __restrict__ x,
       const int l = l0 + tx * TN + j;
       if (l >= L) continue;
       out_s[(long long)b * L + l] = best_s[i][j];
-      out_i[(long long)b * L + l] = best_i[i][j];
+      // kernel D: -1 where the bin's minimum is not finite, as JAX masks it
+      out_i[(long long)b * L + l] =
+          (BLOCK && !isfinite(best_s[i][j])) ? -1 : best_i[i][j];
     }
   }
 }
 
-template <typename T>
+template <bool BLOCK, typename T>
 void launch(int precision, dim3 grid, cudaStream_t stream, const float* q,
             const T* x, const float* norms, float* out_s, int* out_i, int B,
             int N, int D, int L, float factor) {
   switch (precision) {
     case kHighest:
-      scan_bins_kernel<kHighest, T><<<grid, THREADS, 0, stream>>>(
+      scan_bins_kernel<kHighest, BLOCK, T><<<grid, THREADS, 0, stream>>>(
           q, x, norms, out_s, out_i, B, N, D, L, factor);
       break;
     case kHigh:
-      scan_bins_kernel<kHigh, T><<<grid, THREADS, 0, stream>>>(
+      scan_bins_kernel<kHigh, BLOCK, T><<<grid, THREADS, 0, stream>>>(
           q, x, norms, out_s, out_i, B, N, D, L, factor);
       break;
     default:
-      scan_bins_kernel<kDefault, T><<<grid, THREADS, 0, stream>>>(
+      scan_bins_kernel<kDefault, BLOCK, T><<<grid, THREADS, 0, stream>>>(
           q, x, norms, out_s, out_i, B, N, D, L, factor);
       break;
   }
@@ -221,12 +248,31 @@ extern "C" int zvdb_flat_scan_bins(const void* q, const void* x, int x_is_bf16,
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16)
-    launch(precision, grid, s, static_cast<const float*>(q),
+    launch<false>(precision, grid, s, static_cast<const float*>(q),
            static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(norms),
            static_cast<float*>(out_s), static_cast<int*>(out_i), B, N, D, L, factor);
   else
-    launch(precision, grid, s, static_cast<const float*>(q),
+    launch<false>(precision, grid, s, static_cast<const float*>(q),
            static_cast<const float*>(x), static_cast<const float*>(norms),
            static_cast<float*>(out_s), static_cast<int*>(out_i), B, N, D, L, factor);
+  return (int)cudaGetLastError();
+}
+
+// Launches kernel D on `stream`; returns cudaGetLastError() (0 on success).
+// v [cc, B, D] f32, vn [cc, B] f32 (+inf marks an invalid slot), out_s
+// [cc, B, L] f32, out_i [cc, B, L] int32 column ids within the block; every
+// array contiguous on the device. precision: 0 highest, 1 high, 2 default.
+// Allocates nothing, does not sync.
+extern "C" int zvdb_block_bins(const void* v, const void* vn, void* out_s, void* out_i,
+                               int cc, int B, int D, int L, float factor,
+                               int precision, void* stream) {
+  if (cc <= 0 || B <= 0 || L <= 0 || D < 0 || precision < 0 || precision > 2)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + BQ - 1) / BQ, (L + BL - 1) / BL, cc);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const float* vf = static_cast<const float*>(v);
+  launch<true>(precision, grid, static_cast<cudaStream_t>(stream), vf, vf,
+               static_cast<const float*>(vn), static_cast<float*>(out_s),
+               static_cast<int*>(out_i), B, B, D, L, factor);
   return (int)cudaGetLastError();
 }

@@ -82,3 +82,53 @@ def sort_smallest_k(scores: torch.Tensor, ids: torch.Tensor, k: int, dedupe: boo
     ss, _, si = _lexsort(scores, idkey, ids)
     out_s, out_i = ss[..., :k], si[..., :k]
     return torch.where(out_i >= 0, out_s, float("inf")), out_i
+
+
+def bitonic_smallest_k(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Per-row k smallest via a bitonic sorting network over the last axis
+    (padded to a power of two): log^2(C) stages of a fixed lane permutation
+    plus compare/select. Exact; ties go to the smaller id, and invalid slots
+    (+inf / -1) sort last."""
+    c = scores.shape[-1]
+    cp = 1 << max(1, (max(c, k) - 1).bit_length())
+    if cp > c:
+        pad = scores.shape[:-1] + (cp - c,)
+        scores = torch.cat([scores, scores.new_full(pad, float("inf"))], dim=-1)
+        ids = torch.cat([ids, ids.new_full(pad, -1)], dim=-1)
+    idkey = torch.where(ids < 0, 2**30, ids)
+    col = torch.arange(cp, device=scores.device)
+    size = 2
+    while size <= cp:
+        stride = size // 2
+        while stride >= 1:
+            partner = col ^ stride
+            take_min = (col < partner) == ((col & size) == 0)
+            ps = scores.index_select(-1, partner)
+            pi = ids.index_select(-1, partner)
+            pk = idkey.index_select(-1, partner)
+            less = (scores < ps) | ((scores == ps) & (idkey < pk))
+            keep_self = torch.where(take_min, less, ~less)
+            scores = torch.where(keep_self, scores, ps)
+            ids = torch.where(keep_self, ids, pi)
+            idkey = torch.where(keep_self, idkey, pk)
+            stride //= 2
+        size *= 2
+    out_s, out_i = scores[..., :k], ids[..., :k]
+    return torch.where(out_i >= 0, out_s, float("inf")), out_i
+
+
+def mask_duplicate_ids(scores: torch.Tensor, ids: torch.Tensor):
+    """Invalidate all but the first occurrence (by position) of each id per
+    row; ids [..., C] (-1 = already invalid). An O(C^2) equality matrix: C is
+    a beam or candidate width."""
+    c = ids.shape[-1]
+    eq = ids[..., :, None] == ids[..., None, :]                       # [..., C, C]
+    earlier = torch.ones((c, c), dtype=torch.bool, device=ids.device).tril(-1)
+    dup = (eq & earlier).any(-1) & (ids >= 0)
+    return torch.where(dup, float("inf"), scores), torch.where(dup, -1, ids)
+
+
+def mask_ids_in(scores: torch.Tensor, ids: torch.Tensor, banned: torch.Tensor):
+    """Invalidate entries whose id appears in `banned` ([..., K] per-row id list)."""
+    hit = (ids[..., :, None] == banned[..., None, :]).any(-1) & (ids >= 0)
+    return torch.where(hit, float("inf"), scores), torch.where(hit, -1, ids)
