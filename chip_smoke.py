@@ -72,7 +72,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                   only: cuBLAS picks its kernels by batch size);
  16. cagra times - kernel D in every precision at the build's shape, its
                   plain version, the torch.bmm yardstick, bound, search and
-                  server QPS, and a torch.profiler breakdown of a search batch.
+                  server QPS, one beam hop's scoring as CAGRA runs it (the
+                  packed [N, 129] table gathered at [2048, 96] rows, at the
+                  config's precision), and a torch.profiler breakdown of a
+                  search batch;
+ 17. scan compare - kernels E and F (the exact flat top-k scans
+                  flat_topk_pallas / flat_topk_pallas2, csrc/scan_topk.cu)
+                  against their plain version over {l2, dot} x chunk {256,
+                  2048} x k {1, 10, 100}, a ragged N, B=1, N < k, N < chunk
+                  and the main path's width, tie-aware, E == F id for id; the
+                  40-equal-rows tie probe id for id;
+ 18. scan main  - the exact top-10 of every query over the 1M x 128d corpus
+                  through E, then F, in batches of 2048 at their defaults:
+                  launches == batches, recall@10 >= 0.999 against phase 4's
+                  exact search (every other id a near-tie), each kernel on the
+                  first batch against its plain version; ms per batch, plain
+                  version, the product + selection yardstick, bound;
+ 19. hop        - kernel G (fused_hop_scores, csrc/hop_scores.cu) against
+                  its plain version (gather + einsum) at small shapes with
+                  duplicated ids, then over the corpus at the experiment's
+                  shape (B=4992, K=256) and the cagra_1m hop (B=2048, K=128 of
+                  which 96 live): launches, ms, plain, gather alone, bound
+                  (the bytes of each distinct row once, ids, q and output).
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -158,20 +179,23 @@ def phase_device(ctx: Ctx):
 def phase_build(ctx: Ctx):
     from zvdb_tpu_torch.ops import block_scan as BS
     from zvdb_tpu_torch.ops import flat_scan as FS
+    from zvdb_tpu_torch.ops import hop_scores as HS
     from zvdb_tpu_torch.ops import pq_scan as PS
+    from zvdb_tpu_torch.ops import scan_topk as ST
 
     if ctx.rehearse:
         print("build: skipped (rehearsal)")
         return
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, started together
-        for fut in [pool.submit(m.build) for m in (FS, PS)]:
+    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, started together
+        for fut in [pool.submit(fn) for fn in (FS.build, PS.build, ST.build_v1, HS.build)]:
             fut.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
     BS.build()                            # kernel D: the second entry point of flat_scan.cu
-    ctx.report("build seconds (flat_scan.cu and pq_scan.cu in parallel; four kernels)",
-               round(time.perf_counter() - t0, 2))
-    for mod in (FS, PS):
+    ST.build_v2()                         # kernel F: the second entry point of scan_topk.cu
+    ctx.report("build seconds (flat_scan.cu, pq_scan.cu, scan_topk.cu and hop_scores.cu in "
+               "parallel; seven kernels)", round(time.perf_counter() - t0, 2))
+    for mod in (FS, PS, ST, HS):
         info = mod.build_info
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
@@ -1294,9 +1318,301 @@ def phase_cagra_times(ctx: Ctx, idx, q1, chunk):
                search_qps(ctx, idx, q1, search_kwargs=CAGRA_SEARCH))
     ctx.report("cagra_1m server QPS (8 threads, requests of 16 queries)",
                server_qps(ctx, idx, q1, search_kwargs=CAGRA_SEARCH))
+    # one beam hop's candidate scoring as the search runs it: CAGRA's own
+    # scorer over [B, expand * search_degree] rows of its packed table
+    from zvdb_tpu_torch.index import cagra as CG
+    cfg = idx.cfg
+    arrs = idx._search_arrays()
+    qp = torch.from_numpy(q1[:ctx.batch]).to(ctx.device)
+    scorer = CG._make_scorer(arrs, qp, cfg.metric, cfg.packed, cfg.precision)
+    cand = cfg.expand * cfg.search_degree
+    rows = torch.from_numpy(np.random.default_rng(766).integers(
+        0, len(idx), (qp.shape[0], cand)).astype(np.int32)).to(ctx.device)
+    ctx.report(f"cagra_1m hop scorer ms (rows [{qp.shape[0]}, {cand}] of the "
+               f"{list(arrs.table.shape)} table, precision {cfg.precision!r})",
+               ctx.time_ms(lambda: scorer(rows), reps=20))
     profile_search(ctx, idx, q1, label="cagra_1m", search_kwargs=CAGRA_SEARCH)
     return dict(ms=ms["high"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes")
+
+# ---------------------------------------------------------------------------
+# Exact flat top-k: kernels E (flat_topk_pallas) and F (flat_topk_pallas2)
+
+
+def _scores64(q, x, ids, metric):
+    """f64 surrogate scores of rows `ids` [b, k] (clamped to valid rows)."""
+    xs = x[ids.clamp(min=0).long()].double()                         # [b, k, D]
+    dots = (q.double()[:, None, :] * xs).sum(-1)
+    return (xs * xs).sum(-1) - 2.0 * dots if metric == "l2" else -dots
+
+
+def check_topk(q, x, metric, ks, ki, ps, pi, label):
+    """Tie-aware agreement of an exact top-k (ks, ki) with its plain version
+    (ps, pi), both in slot order. The scores of each row, sorted, agree within
+    1e-5 of the score scale (the largest finite |plain score|): the f32 dots
+    sum in other orders. Each row holds as many ids. Where a row's ids differ
+    from the plain row's, every id the plain row lacks is a near-tie: its
+    score recomputed in f64 lies within that tolerance of the plain row's
+    worst. Returns (largest |kernel - plain| over sorted scores, rows whose
+    ids differ)."""
+    if not torch.equal((ki < 0).sum(1), (pi < 0).sum(1)):
+        raise AssertionError(f"{label}: rows hold different numbers of ids")
+    fin = torch.isfinite(ps)
+    scale = float(ps[fin].abs().max()) if bool(fin.any()) else 1.0
+    tol = 1e-5 * scale
+    sk, sp = torch.sort(ks, 1).values, torch.sort(ps, 1).values
+    if not torch.equal(torch.isfinite(sk), torch.isfinite(sp)):
+        raise AssertionError(f"{label}: finite scores differ in number")
+    diff = (sk - sp).abs()[torch.isfinite(sp)]
+    err = float(diff.max()) if diff.numel() else 0.0
+    if err > tol:
+        raise AssertionError(f"{label}: scores differ by up to {err} (tolerance {tol})")
+    rows = torch.nonzero((ki != pi).any(1)).flatten()
+    if rows.numel():
+        kid, pid = ki[rows], pi[rows]
+        extra = (kid >= 0) & ~(kid[:, :, None] == pid[:, None, :]).any(-1)
+        s64 = _scores64(q[rows], x, kid, metric)
+        worst = torch.where(torch.isfinite(ps[rows]), ps[rows], -float("inf")).amax(1)
+        if bool((s64 - worst[:, None].double() > tol)[extra].any()):
+            raise AssertionError(f"{label}: an id differs from plain without a tie")
+    return err, int(rows.numel())
+
+
+def _topk_inputs(rng, n, d, b, dev, dup=0):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    if dup:   # rows 300 .. 300+dup-2 repeat row 0, and query 0 is row 0
+        x[300:300 + dup - 1] = x[0]
+        q[0] = x[0]
+    return torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+
+
+def phase_compare_scan(ctx: Ctx):
+    from zvdb_tpu_torch.ops import scan_topk as ST
+
+    rng = np.random.default_rng(654)
+    dev = ctx.device
+    # (N, D, B, k, metric, chunk)
+    cases = [(5000, 128, 37, k, metric, chunk)
+             for metric in ("l2", "dot") for chunk in (256, 2048) for k in (1, 10, 100)]
+    cases += [(5003, 40, 70, 100, "l2", 256),    # ragged N: the last chunk's tail past N
+              (3000, 33, 1, 10, "dot", 2048),     # B=1, D % 4 != 0 (the scalar path)
+              (5, 16, 9, 10, "l2", 256),          # N < k: slots past N stay +inf / -1
+              (700, 64, 513, 10, "l2", 2048)]     # N < chunk, B no multiple of the tile
+    if not ctx.rehearse:
+        cases.append((200_000, 128, BATCH, 10, "l2", 2048))   # the main path's width
+    for n, d, b, k, metric, chunk in cases:
+        q, x = _topk_inputs(rng, n, d, b, dev)
+        ps, pi = ST._flat_topk_plain(q, x, k, metric, chunk=chunk)
+        es, ei = ST.flat_topk_pallas(q, x, k, metric, chunk=chunk)
+        fs, fi = ST.flat_topk_pallas2(q, x, k, metric, chunk=chunk)
+        ctx.sync()
+        label = f"topk N={n} D={d} B={b} k={k} {metric} chunk={chunk}"
+        if not (torch.equal(ei, fi) and torch.equal(es, fs)):
+            raise AssertionError(f"{label}: E and F differ")
+        err, rows = check_topk(q, x, metric, es, ei, ps, pi, label)
+        print(f"  compare {label}: ok, E == F, max |kernel - plain| = {err:.3g}, "
+              f"{rows} rows with other ids (near-ties)", flush=True)
+
+    # the tie rule: 40 equal rows; the lower row wins an extraction, the first
+    # worst slot is replaced and an equal score is never taken
+    want = [0, 308, 307, 306, 305, 304, 303, 302, 301, 300]
+    for metric in ("l2", "dot"):
+        q, x = _topk_inputs(rng, 1000, 16, 32, dev, dup=40)
+        _, pi = ST._flat_topk_plain(q, x, 10, metric, chunk=256)
+        for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2):
+            _, ki = fn(q, x, 10, metric, chunk=256)
+            if not torch.equal(ki[0], pi[0]) or (metric == "l2" and ki[0].tolist() != want):
+                raise AssertionError(f"topk tie rule broken ({fn.__name__}, {metric}): "
+                                     f"{ki[0].tolist()} vs plain {pi[0].tolist()}")
+    print(f"  compare topk tie rule (40 equal rows, l2 and dot, E and F): ok, {want}", flush=True)
+
+
+def phase_scan_main(ctx: Ctx, x1, q1, gt):
+    """The exact top-10 of every query over the whole corpus through E, then
+    F, at their defaults (q_tile=256, chunk=2048), in batches."""
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.ops import scan_topk as ST
+
+    dev = ctx.device
+    xd = torch.from_numpy(x1).to(dev)
+    qb = [torch.from_numpy(q1[lo:lo + ctx.batch]).to(dev) for lo in range(0, q1.shape[0], ctx.batch)]
+    ctx.sync()
+
+    ST.flat_topk_pallas.launches = ST.flat_topk_pallas2.launches = 0
+    ids = {}
+    for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2):
+        t0 = time.perf_counter()
+        ids[fn.__name__] = torch.cat([fn(qq, xd, K)[1] for qq in qb])
+        ctx.sync()
+        ctx.report(f"scan main {fn.__name__} seconds for {len(qb)} batches (host clock)",
+                   round(time.perf_counter() - t0, 3))
+    launches = {"E": ST.flat_topk_pallas.launches, "F": ST.flat_topk_pallas2.launches}
+    ctx.report("scan main launches", f"{launches} for {len(qb)} batches")
+    if not ctx.rehearse and launches != {"E": len(qb), "F": len(qb)}:
+        raise AssertionError(f"scan kernels launched {launches} for {len(qb)} batches")
+    ei, fi = ids["flat_topk_pallas"], ids["flat_topk_pallas2"]
+    if not torch.equal(ei, fi):
+        raise AssertionError("scan main: E and F ids differ")
+    ids_np = ei.cpu().numpy()
+    rec = recall_at_k(ids_np, gt, K)
+    ctx.report("scan main recall@10 (E == F) against the exact f32 flat search", rec)
+    if rec < 0.999:
+        raise AssertionError(f"scan main recall@10 {rec} < 0.999")
+    # every id outside the oracle's row is a near-tie of the oracle's 10th
+    qd = torch.from_numpy(q1).to(dev).double()
+    gtd = torch.from_numpy(gt.astype(np.int64)).to(dev)
+
+    def dist(ids_):
+        return ((qd[:, None, :] - xd[ids_.long()].double()) ** 2).sum(-1)
+
+    d10 = dist(gtd).amax(1)
+    extra = ~(ei[:, :, None].long() == gtd[:, None, :]).any(-1)
+    worst = float(((dist(ei) - d10[:, None]) / d10[:, None])[extra].max()) if bool(extra.any()) \
+        else 0.0
+    ctx.report("scan main ids outside the oracle's rows",
+               f"{int(extra.sum())}, worst relative distance past the oracle's 10th {worst:.3g}")
+    if worst > 1e-3:
+        raise AssertionError(f"scan main: an id lies {worst} past the oracle's 10th distance")
+    del qd, gtd
+
+    # the kernels on the main path's first batch, held against the plain version
+    q0 = qb[0]
+    ps, pi = ST._flat_topk_plain(q0, xd, K)
+    errs = {}
+    for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2):
+        ks, ki = fn(q0, xd, K)
+        ctx.sync()
+        errs[fn.__name__], rows = check_topk(q0, xd, "l2", ks, ki, ps, pi,
+                                             f"scan main first batch {fn.__name__}")
+        print(f"  compare scan main first batch {fn.__name__}: ok, max |kernel - plain| = "
+              f"{errs[fn.__name__]:.3g}, {rows} rows with other ids", flush=True)
+
+    # times per batch of 2048: each entry point, the plain version, and the
+    # yardstick (product + selection: an f32 matmul per 131,072 rows, then
+    # torch.topk, merged)
+    b, d = q0.shape
+    n = xd.shape[0]
+    ms = {fn.__name__: ctx.time_ms(lambda fn=fn: fn(q0, xd, K), reps=3)
+          for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2)}
+    plain_ms = ctx.time_ms(lambda: ST._flat_topk_plain(q0, xd, K), reps=1, warmup=0)
+    norms = (xd * xd).sum(1)
+
+    def product_selection():
+        best_s = best_i = None
+        for lo in range(0, n, 131072):
+            s = norms[lo:lo + 131072] - 2.0 * (q0 @ xd[lo:lo + 131072].T)
+            v, i = torch.topk(s, K, dim=1, largest=False)
+            i = i + lo
+            if best_s is not None:
+                v, i = torch.cat([best_s, v], 1), torch.cat([best_i, i], 1)
+                v, p = torch.topk(v, K, dim=1, largest=False)
+                i = torch.gather(i, 1, p)
+            best_s, best_i = v, i
+        return best_s, best_i
+
+    library_ms = ctx.time_ms(product_selection, reps=3)
+    ops = 2.0 * b * n * d
+    nbytes = n * d * 4 + b * d * 4 + b * K * 8
+    bound_ops, bound_bytes = ops / PEAK_F32 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    shape = f"B={b} N={n} D={d} k={K} chunk=2048"
+    for name, t in ms.items():
+        ctx.report(f"scan kernel ms ({name}, {shape})", t)
+        ctx.report(f"scan kernel achieved TFLOP/s ({name}, f32)", ops / (t * 1e-3) / 1e12)
+    ctx.report("scan plain version ms (one batch)", plain_ms)
+    ctx.report("scan yardstick ms (product + selection: f32 torch.matmul per 131,072 rows "
+               "+ torch.topk)", library_ms)
+    ctx.report("scan bound ms (2*B*N*D f32 ops / 67 TFLOP/s vs bytes / 3.35 TB/s)",
+               f"{max(bound_ops, bound_bytes)} (ops {bound_ops}, bytes {bound_bytes})")
+    del xd
+    common = dict(plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bound_ops, bound_bytes),
+                  bound_by="operations" if bound_ops >= bound_bytes else "bytes")
+    return {name: dict(common, ms=ms[name], max_abs_err=errs[name],
+                       launches=launches["E" if name == "flat_topk_pallas" else "F"])
+            for name in ms}
+
+# ---------------------------------------------------------------------------
+# The fused hop scorer: kernel G (fused_hop_scores)
+
+
+def _hop_check(idx, q, x, got, want, label):
+    """|kernel - plain| within rtol 1e-5 of |q|.|x| per score (the f32 dot
+    sums in other orders). Returns the largest |kernel - plain|."""
+    scale = q.norm(dim=1)[:, None] * x.norm(dim=1)[idx.long()]
+    diff = (got - want).abs()
+    if not bool((diff <= 1e-5 * scale).all()):
+        raise AssertionError(f"{label}: |kernel - plain| up to {float(diff.max())}")
+    return float(diff.max())
+
+
+def _hop_ids(rng, b, k, n, live=None):
+    """[b, k] random ids; with `live`, the first `live` per row random and
+    the rest repeats of them (a hop's padded candidate list)."""
+    ids = rng.integers(0, n, (b, k)).astype(np.int32)
+    if live is not None:
+        ids[:, live:] = ids[:, :k - live]
+    return ids
+
+
+def phase_hop(ctx: Ctx, x1, q1):
+    from zvdb_tpu_torch.ops import hop_scores as HS
+
+    rng = np.random.default_rng(765)
+    dev = ctx.device
+    for b, k, d in ((8, 128, 32), (64, 256, 128), (8, 128, 100), (8, 128, 13)):
+        x = torch.from_numpy(rng.standard_normal((5000, d)).astype(np.float32)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(_hop_ids(rng, b, k, 5000, live=k // 2)).to(dev)   # duplicated ids
+        got, want = HS.fused_hop_scores(idx, q, x), HS._hop_scores_plain(idx, q, x)
+        ctx.sync()
+        err = _hop_check(idx, q, x, got, want, f"hop B={b} K={k} D={d}")
+        print(f"  compare hop B={b} K={k} D={d} (duplicated ids): ok, max |kernel - plain| = "
+              f"{err:.3g}", flush=True)
+
+    # two shapes over the corpus: the experiment's own (random ids) and the
+    # cagra_1m hop (2048 queries x 96 candidates, padded to 128)
+    xd = torch.from_numpy(x1).to(dev)
+    n, d = xd.shape
+    big = 4992 if not ctx.rehearse else 64
+    shapes = {"experiment": (big, 256, None), "cagra_1m hop": (ctx.batch, 128, 96)}
+    inputs = {}
+    for name, (b, k, live) in shapes.items():
+        rows = rng.integers(0, q1.shape[0], b)
+        inputs[name] = (torch.from_numpy(_hop_ids(rng, b, k, n, live)).to(dev),
+                        torch.from_numpy(q1[rows]).to(dev))
+    ctx.sync()
+    HS.fused_hop_scores.launches = 0
+    outs = {name: HS.fused_hop_scores(idx, q, xd) for name, (idx, q) in inputs.items()}
+    ctx.sync()
+    launches = HS.fused_hop_scores.launches
+    ctx.report("hop launches", f"{launches} for {len(shapes)} hops")
+    if not ctx.rehearse and launches != len(shapes):
+        raise AssertionError(f"hop kernel launched {launches} times for {len(shapes)} hops")
+    res = {}
+    for name, (idx, q) in inputs.items():
+        b, k = idx.shape
+        err = _hop_check(idx, q, xd, outs[name], HS._hop_scores_plain(idx, q, xd),
+                         f"hop {name}")
+        ms = ctx.time_ms(lambda: HS.fused_hop_scores(idx, q, xd), reps=20)
+        plain_ms = ctx.time_ms(lambda: HS._hop_scores_plain(idx, q, xd), reps=10)
+        gather_ms = ctx.time_ms(lambda: xd[idx.long()].sum(dim=(1, 2)), reps=10)
+        # the least bytes: each distinct row once, then ids, q and the output
+        rows_read = int(torch.unique(idx).numel())
+        nbytes = rows_read * d * 4 + b * k * 4 + b * d * 4 + b * k * 4
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        shape = f"B={b} K={k} N={n} D={d}"
+        ctx.report(f"hop {name} ({shape}) distinct rows", f"{rows_read} of {b * k} ids")
+        ctx.report(f"hop {name} ({shape}) kernel ms", ms)
+        ctx.report(f"hop {name} achieved GB/s (the bound's bytes / kernel time)",
+                   nbytes / (ms * 1e-3) / 1e9)
+        ctx.report(f"hop {name} plain ms (gather + einsum, the yardstick)", plain_ms)
+        ctx.report(f"hop {name} gather alone ms (x[idx].sum)", gather_ms)
+        ctx.report(f"hop {name} bound ms (distinct rows, ids, q, output / 3.35 TB/s)", bound_ms)
+        ctx.report(f"hop {name} max |kernel - plain|", err)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by="bytes", max_abs_err=err, launches=launches)
+    del xd
+    return res
 
 
 def main() -> int:
@@ -1334,7 +1650,14 @@ def main() -> int:
     phase_server(ctx, cg_idx, q1, cg_ids, label="cagra_1m ", search_kwargs=CAGRA_SEARCH,
                  max_differ=0.01)
     td = phase_cagra_times(ctx, cg_idx, q1, chunk)
+    del cg_idx, chunk
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_compare_scan(ctx)
+    te = phase_scan_main(ctx, x1, q1, gt)
+    tg = phase_hop(ctx, x1, q1)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
+    hop = tg["experiment"]
     record = {"kernels": [{
         "name": "flat_scan_bins",
         "route": "cuda",
@@ -1383,6 +1706,31 @@ def main() -> int:
         "bound_ms": td["bound_ms"],
         "bound_by": td["bound_by"],
         "library_ms": td["library_ms"],
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "zvdb_tpu_torch/csrc/scan_topk.cu",
+        "replaces": replaces,
+        "launches": te[name]["launches"],
+        "max_abs_err": te[name]["max_abs_err"],
+        "ms": te[name]["ms"],
+        "plain_ms": te[name]["plain_ms"],
+        "bound_ms": te[name]["bound_ms"],
+        "bound_by": te[name]["bound_by"],
+        "library_ms": te[name]["library_ms"],
+    } for name, replaces in (("flat_topk_pallas", "examples/pallas_scan_v1.py:95"),
+                             ("flat_topk_pallas2", "examples/pallas_scan_v2.py:85"))] + [{
+        "name": "fused_hop_scores",
+        "route": "cuda",
+        "source": "zvdb_tpu_torch/csrc/hop_scores.cu",
+        "replaces": "examples/exp_r3_hopkernel.py:93",
+        "launches": hop["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in tg.values()),
+        "ms": hop["ms"],
+        "plain_ms": hop["plain_ms"],
+        "bound_ms": hop["bound_ms"],
+        "bound_by": hop["bound_by"],
+        "library_ms": hop["library_ms"],
     }]}
     if ctx.rehearse:
         print(json.dumps(record))

@@ -20,6 +20,8 @@ import zvdb_tpu_torch.index.pqflat, zvdb_tpu_torch.index.ivfpq, zvdb_tpu_torch.i
 import zvdb_tpu_torch.index.knn_graph, zvdb_tpu_torch.utils.filter_policy
 import zvdb_tpu_torch.ops.block_scan, zvdb_tpu_torch.index.build, zvdb_tpu_torch.index.hnsw
 import zvdb_tpu_torch.index.cagra
+import zvdb_tpu_torch.ops.scan_topk, zvdb_tpu_torch.ops.hop_scores, zvdb_tpu_torch.io.native_loader
+import zvdb_tpu_torch.utils.router, zvdb_tpu_torch.utils.stats, zvdb_tpu_torch.utils.profiling
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(bad)
