@@ -6,9 +6,11 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device     - the card's name, count and power limit (nvidia-smi);
-  2. build      - nvcc builds zvdb_tpu_torch/csrc/flat_scan.cu (kernels A
-                  and D, one library) and csrc/pq_scan.cu (kernels B and C)
-                  for sm_90a, both at once;
+  2. build      - nvcc builds the five sources under zvdb_tpu_torch/csrc/
+                  for sm_90a, all at once: flat_scan.cu (kernel A and D's
+                  CUDA-core entry), pq_scan.cu (B and C), scan_topk.cu (E
+                  and F), hop_scores.cu (G) and block_bins.cu (D on the
+                  tensor cores), each with its ptxas registers and spills;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
                   over a grid of shapes, every precision and metric,
                   tie-aware; pq_scan over every precision x {l2, dot} x
@@ -51,8 +53,10 @@ Phases, in order; any failure raises and the script exits non-zero:
  12. ivfpq times - kernel C in every precision, its plain version, the
                   torch.bmm yardstick, bound, search and server QPS, and a
                   torch.profiler breakdown of a search batch;
- 13. block compare - kernel D (block_bins, the graph build's block scorer,
-                  the second entry point of flat_scan.cu) against its plain
+ 13. block compare - kernel D (block_bins, the graph build's block scorer:
+                  "high" and "default" on the tensor cores, block_bins.cu;
+                  "highest" on the CUDA cores, the second entry point of
+                  flat_scan.cu) against its plain
                   version over every precision x {l2, dot} with invalid
                   slots and a ragged B, B < L, the tie rule (duplicated
                   rows: the lower column wins, the own column never) and the
@@ -62,16 +66,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                   search_degree=24, max_iters=4, ef_search=12,
                   block_topk="pallas")) built from rows on the device
                   (points/s, peak device memory, kernel D's launches per
-                  build against ceil(c_blocks/cc) summed over the passes, a
-                  traced build's stages) and searched in batches of 2048
+                  build against ceil(c_blocks/cc) summed over the passes,
+                  all of them on the tensor cores, a traced build's
+                  stages) and searched in batches of 2048
                   (recall@10 >= 0.95, no kernel launched by search, an ef
                   sweep); kernel D on the build's own first chunk against
                   its plain version in every precision;
  15. cagra server - a SearchServer over the CAGRA index, as in phase 5
                   (answers may differ from the batched search on near-ties
                   only: cuBLAS picks its kernels by batch size);
- 16. cagra times - kernel D in every precision at the build's shape, its
-                  plain version, the torch.bmm yardstick, bound, search and
+ 16. cagra times - kernel D in every precision at the build's shape, the
+                  previous kernel D (CUDA cores) at "high" and "default"
+                  called directly, its plain version, the torch.bmm
+                  yardsticks (one bf16 product, the three of the split),
+                  achieved TFLOP/s, bound, search and
                   server QPS, one beam hop's scoring as CAGRA runs it (the
                   packed [N, 129] table gathered at [2048, 96] rows, at the
                   config's precision), and a torch.profiler breakdown of a
@@ -187,15 +195,17 @@ def phase_build(ctx: Ctx):
         print("build: skipped (rehearsal)")
         return
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, started together
-        for fut in [pool.submit(fn) for fn in (FS.build, PS.build, ST.build_v1, HS.build)]:
+    with ThreadPoolExecutor(5) as pool:   # one nvcc per source, started together
+        for fut in [pool.submit(fn) for fn in (FS.build, PS.build, ST.build_v1, HS.build,
+                                               BS.build_mma)]:
             fut.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
-    BS.build()                            # kernel D: the second entry point of flat_scan.cu
+    BS.build()                            # kernel D "highest": flat_scan.cu's second entry point
     ST.build_v2()                         # kernel F: the second entry point of scan_topk.cu
-    ctx.report("build seconds (flat_scan.cu, pq_scan.cu, scan_topk.cu and hop_scores.cu in "
-               "parallel; seven kernels)", round(time.perf_counter() - t0, 2))
-    for mod in (FS, PS, ST, HS):
+    ctx.report("build seconds (flat_scan.cu, pq_scan.cu, scan_topk.cu, hop_scores.cu and "
+               "block_bins.cu in parallel; seven kernels, eight entry points)",
+               round(time.perf_counter() - t0, 2))
+    for mod in (FS, PS, ST, HS, BS):
         info = mod.build_info
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
@@ -217,11 +227,14 @@ def _rounded_dot64(q, rows, precision):
 def check_bins(q, x, norms, l_bins, metric, precision, ks, ki, ps, pi, label):
     """Tie-aware agreement of kernel bins (ks, ki) with plain bins (ps, pi).
 
-    Scores agree within rtol 1e-5 ("highest") or 1e-3 of the score scale
-    (bf16 modes), the largest finite |plain score|: the two sum in other
-    orders. Each kernel id lies in its bin and names a valid row, and that
-    row's score recomputed in f64 is within the same tolerance of the bin
-    minimum the kernel reports. Returns the largest |kernel - plain|."""
+    Scores agree within rtol 1e-5 ("highest"), 1e-5 of the score scale
+    ("high") or 1e-3 of it ("default"), the scale being the largest finite
+    |plain score|: the two sum the same exact products in other orders, and
+    "high" is held to f32 sum-order error, far below what dropping its
+    hi.lo and lo.hi products would cost. Each kernel id lies in its bin and
+    names a valid row, and that row's score recomputed in f64 is within the
+    same tolerance of the bin minimum the kernel reports. Returns the
+    largest |kernel - plain|."""
     n = x.shape[0]
     f = 2.0 if metric == "l2" else 1.0
     empty_k, empty_p = ki < 0, pi < 0
@@ -235,7 +248,7 @@ def check_bins(q, x, norms, l_bins, metric, precision, ks, ki, ps, pi, label):
     def tolerance(ref):
         if precision == "highest":
             return 1e-5 * ref.abs() + 1e-6 * scale
-        return torch.full_like(ref, 1e-3 * scale)
+        return torch.full_like(ref, (1e-5 if precision == "high" else 1e-3) * scale)
 
     diff = (ks - ps).abs()[fin]
     if bool((diff > tolerance(ps[fin])).any()):
@@ -1196,7 +1209,8 @@ def kernel_counts():
     from zvdb_tpu_torch.ops import pq_scan as PS
 
     return dict(A=FS.flat_scan_bins.launches, B=PS.pq_scan_bins.launches,
-                C=PS.pq_grouped_scan_bins.launches, D=BS.block_bins.launches)
+                C=PS.pq_grouped_scan_bins.launches, D=BS.block_bins.launches,
+                D_mma=BS.block_bins.launches_mma)
 
 
 def reset_kernel_counts():
@@ -1206,6 +1220,7 @@ def reset_kernel_counts():
 
     FS.flat_scan_bins.launches = PS.pq_scan_bins.launches = 0
     PS.pq_grouped_scan_bins.launches = BS.block_bins.launches = 0
+    BS.block_bins.launches_mma = 0
 
 
 def phase_cagra_main(ctx: Ctx, x1, q1, gt):
@@ -1239,17 +1254,19 @@ def phase_cagra_main(ctx: Ctx, x1, q1, gt):
                ctx.n / build_s)
     ctx.report("cagra_1m build geometry", f"c={lb['c']} bcap={lb['bcap']} cc={lb['cc']} "
                f"kc={lb['kc']} blocks per pass {lb['c_blocks']}")
-    ctx.report("cagra_1m kernel launches", f"build: block_bins {after_build['D']} (expected "
-               f"sum of ceil(c_blocks/cc) = {expected}); A {after_build['A']}, B "
+    ctx.report("cagra_1m kernel launches", f"build: block_bins {after_build['D']}, of them on "
+               f"the tensor cores {after_build['D_mma']} (expected sum of ceil(c_blocks/cc) = "
+               f"{expected}); A {after_build['A']}, B "
                f"{after_build['B']}, C {after_build['C']}; search of {n_batches} batches: "
                f"{ {k: after_search[k] - after_build[k] for k in after_search} }")
     ctx.report("cagra_1m recall@10 (ef=12)", rec)
     if dev.type == "cuda":
         ctx.report("cagra_1m peak device memory GB (build + search, max_memory_allocated)",
                    torch.cuda.max_memory_allocated() / 1e9)
-    if not ctx.rehearse and (after_build["D"] != expected or after_build["A"]
-                             or after_build["B"] or after_build["C"]):
-        raise AssertionError(f"build launched {after_build}, expected D={expected} only")
+    if not ctx.rehearse and (after_build["D"] != expected or after_build["D_mma"] != expected
+                             or after_build["A"] or after_build["B"] or after_build["C"]):
+        raise AssertionError(f"build launched {after_build}, expected D == D_mma == {expected} "
+                             "only")
     if after_search != after_build:
         raise AssertionError(f"search launched kernels: {after_build} -> {after_search}")
     if rec < 0.95:
@@ -1290,30 +1307,57 @@ def phase_cagra_times(ctx: Ctx, idx, q1, chunk):
     v, vn = chunk
     cc, b, d = v.shape
     L = 128
+    # 100 calls per time on the card: the first timing after the server phase
+    # is the one a host stall of a few ms would move
+    reps = 3 if ctx.rehearse else 100
     ms = {p: ctx.time_ms(lambda p=p: BS.block_bins(v, vn, l_bins=L, bq=256, precision=p),
-                         reps=20)
+                         reps=reps, warmup=5)
           for p in ("high", "default", "highest")}
+    if not ctx.rehearse:   # the previous kernel D: the CUDA-core entry, called directly
+        fma = BS.build()
+        out = (torch.empty((cc, b, L), device=v.device),
+               torch.empty((cc, b, L), dtype=torch.int32, device=v.device))
+        fma_ms = {p: ctx.time_ms(lambda p=p: BS.launch(fma, v, vn, *out, "l2", p), reps=reps,
+                                 warmup=5)
+                  for p in ("high", "default")}
+        del out
     plain_ms = ctx.time_ms(lambda: BS.block_bins_plain(v, vn, L, "l2", "high"), reps=5)
     vb = v.to(torch.bfloat16)
+    vlo = (v - vb.float()).to(torch.bfloat16)
     library_ms = ctx.time_ms(lambda: torch.bmm(vb, vb.transpose(1, 2)), reps=20)
+    split_ms = ctx.time_ms(lambda: (torch.bmm(vb, vb.transpose(1, 2)),
+                                    torch.bmm(vb, vlo.transpose(1, 2)),
+                                    torch.bmm(vlo, vb.transpose(1, 2))), reps=20)
     f32_ms = ctx.time_ms(lambda: torch.bmm(v, v.transpose(1, 2)), reps=10)
-    del vb
-    ops = 2.0 * cc * b * b * d
+    del vb, vlo
+    ops = 2.0 * cc * b * b * d            # one full [B, B] product per block, as computed
+    needed = 1.0 * cc * b * (b - 1) * d   # the B(B-1)/2 distinct pairs: scores are symmetric
     nbytes = cc * b * d * 4 + cc * b * 4 + cc * b * L * 8
-    bound_ops, bound_bytes = 3 * ops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    bound_ops, bound_bytes = 3 * needed / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
     shape = f"cc={cc} B={b} D={d} L={L}"
     for p, t in ms.items():
-        ctx.report(f"block kernel ms ({p}, {shape})", t)
-    ctx.report("block kernel achieved TFLOP/s (high, counting its 3 products)",
-               3 * ops / (ms["high"] * 1e-3) / 1e12)
+        route = "CUDA cores, flat_scan.cu" if p == "highest" else "tensor cores, block_bins.cu"
+        ctx.report(f"block kernel ms ({p}, {route}, {shape})", t)
+    if not ctx.rehearse:
+        for p, t in fma_ms.items():
+            ctx.report(f"previous kernel D (CUDA cores) ms ({p}, zvdb_block_bins called "
+                       "directly)", t)
+    ctx.report("block kernel achieved TFLOP/s (the full products it computes: high 3, "
+               "default 1)",
+               f"{3 * ops / (ms['high'] * 1e-3) / 1e12} high, "
+               f"{ops / (ms['default'] * 1e-3) / 1e12} default")
     ctx.report("block plain version ms (high)", plain_ms)
     ctx.report("block torch.bmm yardstick ms (bf16 [cc,B,D] x [cc,D,B], one product)", library_ms)
+    ctx.report("block torch.bmm yardstick ms (the split's three bf16 products hi.hi, hi.lo, "
+               "lo.hi)", split_ms)
     ctx.report("block torch.bmm f32 ms (same shapes, TF32 off)", f32_ms)
-    ctx.report("block bound ms (high: 3 bf16 products / 989 TFLOP/s vs bytes / 3.35 TB/s)",
+    ctx.report("block bound ms (high: 3 bf16 products over the distinct pairs / 989 TFLOP/s "
+               "vs bytes / 3.35 TB/s)",
                f"{bound_ms} (ops {bound_ops}, bytes {bound_bytes}; default "
-               f"{max(ops / PEAK_BF16 * 1e3, bound_bytes)}, highest "
-               f"{max(ops / PEAK_F32 * 1e3, bound_bytes)})")
+               f"{max(needed / PEAK_BF16 * 1e3, bound_bytes)}, highest "
+               f"{max(needed / PEAK_F32 * 1e3, bound_bytes)}); share of the bound: high "
+               f"{bound_ms / ms['high']}")
     ctx.report("cagra_1m search QPS (batches of 2048, 3 runs)",
                search_qps(ctx, idx, q1, search_kwargs=CAGRA_SEARCH))
     ctx.report("cagra_1m server QPS (8 threads, requests of 16 queries)",
@@ -1697,7 +1741,7 @@ def main() -> int:
     }, {
         "name": "block_bins",
         "route": "cuda",
-        "source": "zvdb_tpu_torch/csrc/flat_scan.cu",
+        "source": "zvdb_tpu_torch/csrc/block_bins.cu",
         "replaces": "zvdb_tpu/ops/pallas_block.py:90",
         "launches": cg_launches,
         "max_abs_err": cg_errs["high"],

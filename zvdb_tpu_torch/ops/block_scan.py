@@ -8,10 +8,13 @@ modular-bin minima by column m*L + l (strict <, so the lower column wins a
 tie), the self-pair excluded, and the [cc, B, B] score tensor never reaches
 device memory; a small sort over the L bins then picks the candidates.
 
-On a CUDA tensor `block_bins` launches kernel D, the second entry point of
-csrc/flat_scan.cu (built with nvcc at first use into build/kernels/ and
-bound with ctypes); on a CPU tensor it runs `block_bins_plain`, the same
-function in plain PyTorch, which the tests hold against the JAX package.
+On a CUDA tensor `block_bins` launches kernel D, chosen by precision alone:
+"high" and "default" run on the tensor cores (csrc/block_bins.cu, bf16
+mma.sync), "highest" on the CUDA cores' f32 pipes (the second entry point of
+csrc/flat_scan.cu), since f32 products cannot use the bf16 tensor cores. Each
+source is built with nvcc at first use into build/kernels/ and bound with
+ctypes. On a CPU tensor it runs `block_bins_plain`, the same function in
+plain PyTorch, which the tests hold against the JAX package.
 """
 from __future__ import annotations
 
@@ -21,19 +24,29 @@ import torch
 
 from . import cuda_build
 from . import distance as D
-from .flat_scan import _PRECISION_CODE, build_info
+from . import flat_scan as FS
+from .flat_scan import _PRECISION_CODE
 
 _INF = float("inf")
+# v, vn, out_s, out_i, cc, B, D, L, factor, precision, stream: both entry points
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p]
+build_info: dict = {}   # block_bins.cu: path, seconds, ptxas report of this process's build
 
 
 def build():
     """Compile csrc/flat_scan.cu (shared with kernel A), load it and return
-    kernel D's entry point."""
-    fn, info = cuda_build.load(
-        "flat_scan.cu", "zvdb_block_bins",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-         ctypes.c_void_p])
+    kernel D's CUDA-core entry point ("highest")."""
+    fn, info = cuda_build.load("flat_scan.cu", "zvdb_block_bins", _ARGTYPES)
+    FS.build_info.update(info)
+    return fn
+
+
+def build_mma():
+    """Compile csrc/block_bins.cu, load it and return kernel D's tensor-core
+    entry point ("high" and "default")."""
+    fn, info = cuda_build.load("block_bins.cu", "zvdb_block_bins_mma", _ARGTYPES)
     build_info.update(info)
     return fn
 
@@ -101,21 +114,32 @@ def block_bins(
     cc, b, d = v.shape
     if cc > 65535 or l_bins > 65535 * 64:
         raise ValueError("block_bins: needs cc <= 65535 and l_bins <= 65535*64 (grid limits)")
-    v = v.contiguous()
-    vn = vn.contiguous()
     out_s = torch.empty((cc, b, l_bins), dtype=torch.float32, device=v.device)
     out_i = torch.empty((cc, b, l_bins), dtype=torch.int32, device=v.device)
     if cc == 0 or b == 0:
         return out_s, out_i
-    kernel = build()
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        rc = kernel(v.data_ptr(), vn.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), cc, b, d,
-                    l_bins, 2.0 if metric == "l2" else 1.0, _PRECISION_CODE[precision], stream)
-    if rc != 0:
-        raise RuntimeError(f"block_bins: kernel launch failed with CUDA error {rc}")
+    mma = precision != "highest"
+    launch(build_mma() if mma else build(), v, vn, out_s, out_i, metric, precision)
     block_bins.launches += 1
+    block_bins.launches_mma += mma
     return out_s, out_i
 
 
-block_bins.launches = 0
+block_bins.launches = 0       # every launch of kernel D
+block_bins.launches_mma = 0   # the launches on the tensor cores ("high", "default")
+
+
+def launch(kernel, v, vn, out_s, out_i, metric: str, precision: str):
+    """Run one of kernel D's entry points on CUDA tensors already checked by
+    `block_bins`, into out_s / out_i; counts nothing. Raises RuntimeError if
+    the launch fails."""
+    cc, b, d = v.shape
+    v = v.contiguous()
+    vn = vn.contiguous()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = kernel(v.data_ptr(), vn.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), cc, b, d,
+                    out_s.shape[2], 2.0 if metric == "l2" else 1.0, _PRECISION_CODE[precision],
+                    stream)
+    if rc != 0:
+        raise RuntimeError(f"block_bins: kernel launch failed with CUDA error {rc}")
