@@ -6,17 +6,20 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device     - the card's name, count and power limit (nvidia-smi);
-  2. build      - nvcc builds the five sources under zvdb_tpu_torch/csrc/
+  2. build      - nvcc builds the six sources under zvdb_tpu_torch/csrc/
                   for sm_90a, all at once: flat_scan.cu (kernel A and D's
-                  CUDA-core entry), pq_scan.cu (B and C), scan_topk.cu (E
-                  and F), hop_scores.cu (G) and block_bins.cu (D on the
+                  CUDA-core entry), pq_scan.cu (B's CUDA-core route and C),
+                  pq_scan_mma.cu (B int8 on the tensor cores), scan_topk.cu
+                  (E and F), hop_scores.cu (G) and block_bins.cu (D on the
                   tensor cores), each with its ptxas registers and spills;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
                   over a grid of shapes, every precision and metric,
                   tie-aware; pq_scan over every precision x {l2, dot} x
                   per_bin {1, 2} x {one pool, segment pools}, invalid rows,
-                  ragged N, B=1 and duplicated codes (int8: equal ids and
-                  scores; default/high: tie-aware); pq_grouped_scan over
+                  ragged N, B=1 and duplicated codes, int8 also at n_sub 8,
+                  32 and 64, L=100 and L < 64 (int8 on the tensor cores,
+                  launches_mma counted: equal ids and scores; default/high
+                  on the CUDA cores: tie-aware); pq_grouped_scan over
                   every precision x {l2, dot} x per_bin {1, 2}, cap no
                   multiple of L, tombstoned rows, empty slots and empty slot
                   tiles, qcap 32 and 64, B=1, a 64 KB table, duplicated
@@ -34,11 +37,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                   PQConfig(dim=128) defaults: 4-bit n_sub=16 codes, int8 ADC
                   scan through the kernel, int16 refine, rerank=12) built
                   (points/s, peak device memory) and searched in batches of
-                  2048, launch counts and recall@10 read; the kernel on the
-                  main path's own inputs against its plain version;
+                  2048, launch counts (every batch through the tensor-core
+                  kernel: launches_mma == batches) and recall@10 read; the
+                  kernel on the main path's own inputs against its plain
+                  version, and int8 against the CUDA-core kernel;
   8. pq server  - a SearchServer over the PQ index, as in phase 5;
-  9. pq times   - the PQ kernel in every precision, its plain version, the
-                  torch._int_mm and bf16 matmul yardsticks, bound, search and
+  9. pq times   - the PQ kernel in every precision over 100 calls each
+                  (int8 on the tensor cores and, called directly, on the CUDA
+                  cores), its plain version, the torch._int_mm and bf16
+                  matmul yardsticks, bound (with the fold's term), search and
                   server QPS, and a torch.profiler breakdown of a search
                   batch (kernel time by name, the device's busy share);
  10. ivfpq main - the ivfpq_1m configuration (the same corpus and queries,
@@ -127,6 +134,8 @@ PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core rate, operations/s
 PEAK_INT8 = 1979e12    # H100 SXM dense int8 tensor-core rate, operations/s
 PEAK_F32 = 67e12       # H100 SXM f32 rate outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+CUDA_CORE_INSTR_S = PEAK_F32 / 2   # lane-instructions/s outside the tensor cores (132 SMs x 128 lanes x 1.98 GHz)
+FOLD_INSTR = 9         # CUDA-core instructions per score of kernel B's fold (per_bin=2)
 
 
 class Ctx:
@@ -195,18 +204,18 @@ def phase_build(ctx: Ctx):
         print("build: skipped (rehearsal)")
         return
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:   # one nvcc per source, started together
-        for fut in [pool.submit(fn) for fn in (FS.build, PS.build, ST.build_v1, HS.build,
-                                               BS.build_mma)]:
+    with ThreadPoolExecutor(6) as pool:   # one nvcc per source, started together
+        for fut in [pool.submit(fn) for fn in (FS.build, PS.build, PS.build_mma, ST.build_v1,
+                                               HS.build, BS.build_mma)]:
             fut.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
     BS.build()                            # kernel D "highest": flat_scan.cu's second entry point
     ST.build_v2()                         # kernel F: the second entry point of scan_topk.cu
-    ctx.report("build seconds (flat_scan.cu, pq_scan.cu, scan_topk.cu, hop_scores.cu and "
-               "block_bins.cu in parallel; seven kernels, eight entry points)",
+    ctx.report("build seconds (flat_scan.cu, pq_scan.cu, pq_scan_mma.cu, scan_topk.cu, "
+               "hop_scores.cu and block_bins.cu in parallel; seven kernels, nine entry points)",
                round(time.perf_counter() - t0, 2))
-    for mod in (FS, PS, ST, HS, BS):
-        info = mod.build_info
+    for info in (FS.build_info, PS.build_info, PS.build_info_mma, ST.build_info, HS.build_info,
+                 BS.build_info):
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -631,10 +640,16 @@ def compare_pq_case(ctx, label, lut, codes_t, norms, l_bins, chunk, metric, prec
     from zvdb_tpu_torch.ops import pq_scan as PS
 
     args = (l_bins, chunk, metric, precision, per_bin, seg_rows)
+    before = PS.pq_scan_bins.launches_mma
     ks, ki = PS.pq_scan_bins(lut, codes_t, norms, l_bins=l_bins, chunk=chunk, metric=metric,
                              precision=precision, per_bin=per_bin, seg_rows=seg_rows)
     ps, pi = PS._pq_scan_bins_plain(lut, codes_t, norms, *args)
     ctx.sync()
+    # the route is chosen by precision: int8 alone on the tensor cores
+    want = int(not ctx.rehearse and precision == "int8")
+    if PS.pq_scan_bins.launches_mma - before != want:
+        raise AssertionError(f"{label}: launches_mma moved by "
+                             f"{PS.pq_scan_bins.launches_mma - before}, not {want}")
     err = check_pq_bins(lut, codes_t, norms, *args, ks, ki, ps, pi, label)
     print(f"  compare {label}: ok, max |kernel - plain| = {err:.3g}", flush=True)
     return err
@@ -655,6 +670,12 @@ def phase_compare_pq(ctx: Ctx):
         (1, 3001, 16, 1024, 1024, "l2", "int8", 2, 0, 5),
         (70, 4099, 32, 100, 400, "l2", "high", 2, 800, 9),   # 64 KB of table: > 48 KB smem
         (9, 40, 16, 64, 64, "dot", "default", 2, 0, 0),      # N < L: empty bins
+        # int8 on the tensor cores: n_sub 8, 32 and 64 (two table chunks), L no
+        # multiple of the block's bins, L < 64, B past one query tile
+        (300, 3001, 8, 100, 400, "l2", "int8", 2, 800, 7),
+        (70, 4099, 32, 100, 400, "dot", "int8", 1, 0, 9),
+        (37, 2500, 64, 48, 96, "l2", "int8", 2, 960, 11),
+        (5, 700, 16, 20, 40, "l2", "int8", 2, 0, 3),
     ]
     if not ctx.rehearse:
         for precision in ("int8", "default"):
@@ -709,7 +730,7 @@ def phase_pq_main(ctx: Ctx, x1, q1, gt):
         torch.cuda.reset_peak_memory_stats()
 
     FS.flat_scan_bins.launches = 0
-    PS.pq_scan_bins.launches = 0
+    PS.pq_scan_bins.launches = PS.pq_scan_bins.launches_mma = 0
     build_pps = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -720,16 +741,20 @@ def phase_pq_main(ctx: Ctx, x1, q1, gt):
     ids = batched_ids(ctx, idx, q1, **APPROX)
     ctx.sync()
     launches, flat_launches = PS.pq_scan_bins.launches, FS.flat_scan_bins.launches
+    launches_mma = PS.pq_scan_bins.launches_mma
     rec = recall_at_k(ids, gt, K)
     ctx.report("pq_1m build points/s (2 runs, rows already on the device)", build_pps)
     ctx.report("pq_1m recall@10", rec)
-    ctx.report("pq_1m kernel launches", f"pq_scan_bins {launches}, flat_scan_bins "
-                                        f"{flat_launches} for {n_batches} batches")
+    ctx.report("pq_1m kernel launches", f"pq_scan_bins {launches} (on the tensor cores "
+                                        f"{launches_mma}), flat_scan_bins {flat_launches} "
+                                        f"for {n_batches} batches")
     if dev.type == "cuda":
         ctx.report("pq_1m peak device memory GB (build + search, max_memory_allocated)",
                    torch.cuda.max_memory_allocated() / 1e9)
-    if not ctx.rehearse and (launches != n_batches or flat_launches):
-        raise AssertionError(f"pq kernel launched {launches} times for {n_batches} batches")
+    if not ctx.rehearse and (launches != n_batches or launches_mma != n_batches
+                             or flat_launches):
+        raise AssertionError(f"pq kernel launched {launches} times ({launches_mma} on the "
+                             f"tensor cores) for {n_batches} batches")
     if rec < 0.95:
         raise AssertionError(f"pq_1m recall@10 {rec} < 0.95")
     del xd
@@ -745,6 +770,18 @@ def phase_pq_main(ctx: Ctx, x1, q1, gt):
         errs[precision] = compare_pq_case(
             ctx, f"PQ main-path inputs B={lut.shape[0]} N={st.norms.shape[0]} {precision}",
             lut, st.codes, st.norms, *args, precision, cfg.per_bin, cfg.seg_rows)
+    if not ctx.rehearse:   # int8: the tensor cores against the CUDA cores, called directly
+        kw = (*args, "int8", cfg.per_bin, cfg.seg_rows)
+        ns, ni = PS.pq_scan_bins(lut, st.codes, st.norms, l_bins=cfg.l_bins,
+                                 chunk=cfg.pallas_chunk, metric=cfg.metric, precision="int8",
+                                 per_bin=cfg.per_bin, seg_rows=cfg.seg_rows)
+        os_, oi = PS.launch(PS.build(), lut, st.codes, st.norms, *kw)
+        ctx.sync()
+        if not (torch.equal(ni, oi) and torch.equal(ns, os_)):
+            raise AssertionError(f"PQ main path int8: tensor cores and CUDA cores differ in "
+                                 f"{int((ni != oi).sum())} ids, {int((ns != os_).sum())} scores")
+        print("  compare PQ main-path inputs int8: tensor cores == CUDA cores, ids and scores",
+              flush=True)
     return idx, ids, launches, lut, errs
 
 
@@ -795,9 +832,16 @@ def phase_pq_times(ctx: Ctx, idx, q1, lut):
     n = st.norms.shape[0]
     kw = dict(l_bins=cfg.l_bins, chunk=cfg.pallas_chunk, metric=cfg.metric,
               per_bin=cfg.per_bin, seg_rows=cfg.seg_rows)
+    # 100 calls each: fewer read a host stall after a server phase as kernel time
     ms = {p: ctx.time_ms(lambda p=p: PS.pq_scan_bins(lut, st.codes, st.norms, precision=p, **kw),
-                         reps=10)
+                         reps=100)
           for p in ("int8", "default", "high")}
+    old_int8_ms = None   # the CUDA-core kernel at int8 (pq_scan.cu), called directly
+    if not ctx.rehearse:
+        old = PS.build()
+        old_int8_ms = ctx.time_ms(lambda: PS.launch(
+            old, lut, st.codes, st.norms, cfg.l_bins, cfg.pallas_chunk, cfg.metric, "int8",
+            cfg.per_bin, cfg.seg_rows), reps=100)
     plain_ms = ctx.time_ms(lambda: PS._pq_scan_bins_plain(
         lut, st.codes, st.norms, cfg.l_bins, cfg.pallas_chunk, cfg.metric, "int8",
         cfg.per_bin, cfg.seg_rows), reps=2)
@@ -822,20 +866,28 @@ def phase_pq_times(ctx: Ctx, idx, q1, lut):
     ops = 2.0 * b * n_pad * n_sub * 16
     nbytes = n_sub // 2 * n + 4 * n + b * n_sub * 16 + 4 * b + 8 * b * n_seg * cfg.per_bin * cfg.l_bins
     bound_ops, bound_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM_BYTES_S * 1e3
-    bound_ms = max(bound_ops, bound_bytes)
+    # the fold: FOLD_INSTR CUDA-core instructions per score (the float
+    # conversion, scale and fma; two compares; four selects), one per lane
+    # per clock
+    bound_fold = b * n * FOLD_INSTR / CUDA_CORE_INSTR_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes, bound_fold)
     shape = f"B={b} N={n} S={n_sub} L={cfg.l_bins} per_bin={cfg.per_bin}"
     for p, t in ms.items():
-        ctx.report(f"pq kernel ms ({p}, {shape})", t)
+        route = "tensor cores, pq_scan_mma.cu" if p == "int8" else "CUDA cores, pq_scan.cu"
+        ctx.report(f"pq kernel ms ({p}, {route}, {shape}, 100 calls)", t)
+    ctx.report("pq kernel ms (int8, CUDA cores, pq_scan.cu called directly, 100 calls)",
+               old_int8_ms)
     ctx.report("pq plain version ms (int8)", plain_ms)
     ctx.report("pq torch._int_mm yardstick ms (int8 [2048,256] x one-hot [256,N_pad])", library_ms)
     ctx.report("pq bf16 torch.matmul yardstick ms (same shapes)", bf16_ms)
-    ctx.report("pq bound ms (2*B*N_pad*S*16 ops / 1979 TOP/s int8 vs bytes / 3.35 TB/s)",
-               f"{bound_ms} (ops {bound_ops}, bytes {bound_bytes})")
+    ctx.report("pq bound ms (max of 2*B*N_pad*S*16 ops / 1979 TOP/s int8, bytes / 3.35 TB/s, "
+               f"B*N*{FOLD_INSTR} fold instructions / (132 SMs x 128 lanes x 1.98 GHz))",
+               f"{bound_ms} (ops {bound_ops}, bytes {bound_bytes}, fold {bound_fold})")
     ctx.report("pq_1m search QPS (batches of 2048, 3 runs)", search_qps(ctx, idx, q1))
     ctx.report("pq_1m server QPS (8 threads, requests of 16 queries)", server_qps(ctx, idx, q1))
     profile_search(ctx, idx, q1)
     return dict(ms=ms["int8"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="operations" if bound_ops >= bound_bytes else "bytes")
+                bound_by="operations" if max(bound_ops, bound_fold) >= bound_bytes else "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -1209,8 +1261,8 @@ def kernel_counts():
     from zvdb_tpu_torch.ops import pq_scan as PS
 
     return dict(A=FS.flat_scan_bins.launches, B=PS.pq_scan_bins.launches,
-                C=PS.pq_grouped_scan_bins.launches, D=BS.block_bins.launches,
-                D_mma=BS.block_bins.launches_mma)
+                B_mma=PS.pq_scan_bins.launches_mma, C=PS.pq_grouped_scan_bins.launches,
+                D=BS.block_bins.launches, D_mma=BS.block_bins.launches_mma)
 
 
 def reset_kernel_counts():
@@ -1219,6 +1271,7 @@ def reset_kernel_counts():
     from zvdb_tpu_torch.ops import pq_scan as PS
 
     FS.flat_scan_bins.launches = PS.pq_scan_bins.launches = 0
+    PS.pq_scan_bins.launches_mma = 0
     PS.pq_grouped_scan_bins.launches = BS.block_bins.launches = 0
     BS.block_bins.launches_mma = 0
 
@@ -1717,7 +1770,7 @@ def main() -> int:
     }, {
         "name": "pq_scan_bins",
         "route": "cuda",
-        "source": "zvdb_tpu_torch/csrc/pq_scan.cu",
+        "source": "zvdb_tpu_torch/csrc/pq_scan_mma.cu",
         "replaces": "zvdb_tpu/ops/pallas_pq.py:203",
         "launches": pq_launches,
         "max_abs_err": pq_errs["int8"],

@@ -184,12 +184,13 @@ def test_argument_checks():
         PS.pq_scan_bins(lut, codes[:3], norms)                        # codes width
 
 
-def test_cpu_tensors_take_the_plain_version():
+@pytest.mark.parametrize("precision", ["int8", "default", "high"])
+def test_cpu_tensors_take_the_plain_version(precision):
     lut, codes, norms = (torch.from_numpy(a) for a in _inputs(3, 300, 8, seed=1))
-    before = PS.pq_scan_bins.launches
-    a = PS.pq_scan_bins(lut, codes, norms, l_bins=16, chunk=32, precision="int8")
-    b = PS._pq_scan_bins_plain(lut, codes, norms, 16, 32, "l2", "int8", 1, 0)
-    assert PS.pq_scan_bins.launches == before
+    before = PS.pq_scan_bins.launches, PS.pq_scan_bins.launches_mma
+    a = PS.pq_scan_bins(lut, codes, norms, l_bins=16, chunk=32, precision=precision, per_bin=2)
+    b = PS._pq_scan_bins_plain(lut, codes, norms, 16, 32, "l2", precision, 2, 0)
+    assert (PS.pq_scan_bins.launches, PS.pq_scan_bins.launches_mma) == before
     for u, v in zip(a, b):
         assert torch.equal(u, v)
 
@@ -201,25 +202,75 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("per_bin", [1, 2])
-@pytest.mark.parametrize("precision", ["int8", "default", "high"])
-def test_kernel_matches_plain_on_gpu(cuda_device, precision, per_bin):
-    lut, codes, norms = (torch.from_numpy(a).to(cuda_device) for a in _inputs(
-        37, 5000, 16, seed=9, invalid_every=7))
-    kw = dict(l_bins=128, chunk=512, metric="l2", precision=precision, per_bin=per_bin,
-              seg_rows=2048)
-    before = PS.pq_scan_bins.launches
-    ks, ki = PS.pq_scan_bins(lut, codes, norms, **kw)
-    ps, pi = PS._pq_scan_bins_plain(lut, codes, norms, 128, 512, "l2", precision, per_bin, 2048)
+# (B, N, n_sub, L, chunk, seg_rows, metric, invalid_every)
+GPU_SHAPES = [
+    (37, 5000, 16, 128, 512, 2048, "l2", 7),     # three segments, B no multiple of 64
+    (70, 4099, 32, 100, 400, 800, "l2", 9),      # L no multiple of 64, six segments
+    (1, 3001, 8, 64, 64, 0, "dot", 5),           # B=1, S=8, one pool
+    (70, 2500, 64, 1024, 1024, 0, "dot", 11),    # L=1024, more bins than one step's rows
+    (9, 40, 16, 1024, 1024, 0, "l2", 3),         # N < L: empty bins
+    (5, 700, 16, 48, 96, 192, "l2", 4),          # L < 64: one slice, most of it masked
+    (37, 1100, 136, 64, 128, 512, "l2", 6),      # int8 only: the table in two padded chunks
+    (3, 600, 256, 128, 128, 0, "dot", 0),        # int8 only: S=256, two full chunks
+]
+GPU_CASES = [(shape, precision) for shape in GPU_SHAPES for precision in ("int8", "default", "high")
+             if shape[2] <= 64 or precision == "int8"]
+
+
+def _check_gpu(lut, codes, norms, l_bins, chunk, metric, precision, per_bin, seg_rows):
+    """Kernel B through `pq_scan_bins` against the plain version: the launch
+    counted once (on the tensor cores for int8 alone), ids and scores equal
+    for int8 (also to the CUDA-core kernel at int8), tie-aware otherwise."""
+    before, before_mma = PS.pq_scan_bins.launches, PS.pq_scan_bins.launches_mma
+    ks, ki = PS.pq_scan_bins(lut, codes, norms, l_bins=l_bins, chunk=chunk, metric=metric,
+                             precision=precision, per_bin=per_bin, seg_rows=seg_rows)
+    args = (l_bins, chunk, metric, precision, per_bin, seg_rows)
+    ps, pi = PS._pq_scan_bins_plain(lut, codes, norms, *args)
     torch.cuda.synchronize()
     assert PS.pq_scan_bins.launches == before + 1
+    assert PS.pq_scan_bins.launches_mma == before_mma + (precision == "int8")
+    if precision == "int8":
+        assert torch.equal(ki, pi) and torch.equal(ks, ps)
+        os_, oi = PS.launch(PS.build(), lut, codes, norms, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(oi, ki) and torch.equal(os_, ks)
+        return ks, ki
     _agree((ks.cpu().numpy(), ki.cpu().numpy()), (ps.cpu().numpy(), pi.cpu().numpy()),
            precision)
-    # duplicated codes tie in every bin: the lower row wins
+    return ks, ki
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_bin", [1, 2])
+@pytest.mark.parametrize("case", GPU_CASES,
+                         ids=lambda c: "x".join(map(str, c[0])) + "-" + c[1])
+def test_kernel_matches_plain_on_gpu(cuda_device, case, per_bin):
+    (b, n, n_sub, l_bins, chunk, seg_rows, metric, inv), precision = case
+    lut, codes, norms = (torch.from_numpy(a).to(cuda_device) for a in _inputs(
+        b, n, n_sub, seed=b + n + n_sub, metric=metric, invalid_every=inv))
+    ks, ki = _check_gpu(lut, codes, norms, l_bins, chunk, metric, precision, per_bin, seg_rows)
+    if inv:
+        assert not bool(torch.isin(ki, torch.arange(0, n, inv, device=cuda_device)).any())
+    if n < l_bins:
+        assert bool((ki[:, n:l_bins] == -1).all()) and bool(torch.isinf(ks[:, n:l_bins]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["int8", "default", "high"])
+def test_kernel_tie_rule_on_gpu(cuda_device, precision):
+    # duplicated codes tie in every bin: the lower row wins slot 1, its next
+    # copy (an equal score) slot 2
     lut, codes, norms = (torch.from_numpy(a).to(cuda_device) for a in _inputs(
         5, 512, 16, seed=3, dup_rows=128))
-    _, di = PS.pq_scan_bins(lut, codes, norms, l_bins=128, chunk=128, precision=precision,
-                            per_bin=2)
+    _, di = _check_gpu(lut, codes, norms, 128, 128, "l2", precision, 2, 0)
     assert torch.equal(di[:, :128], torch.arange(128, device=cuda_device).int().expand(5, -1))
     assert torch.equal(di[:, 128:], di[:, :128] + 128)
+
+
+@pytest.mark.gpu
+def test_int8_refuses_a_table_past_256_subspaces_on_gpu(cuda_device):
+    lut, codes, norms = (torch.from_numpy(a).to(cuda_device) for a in _inputs(2, 64, 264, seed=0))
+    before = PS.pq_scan_bins.launches
+    with pytest.raises(ValueError):
+        PS.pq_scan_bins(lut, codes, norms, l_bins=32, chunk=64, precision="int8")
+    assert PS.pq_scan_bins.launches == before

@@ -17,11 +17,15 @@ over cluster blocks codes_blocks [C, S/2, cap], each scored only against the
 queries slotted to it in qslot [C, qcap]. Row `pos` of a cluster falls in
 bin pos % L, and the outputs hold positions within the cluster, not ids.
 
-On a CUDA tensor `pq_scan_bins` and `pq_grouped_scan_bins` launch the
-hand-written kernels in csrc/pq_scan.cu (one library, built with nvcc at
-first use, bound with ctypes); on a CPU tensor they run `_pq_scan_bins_plain`
-and `_pq_grouped_scan_bins_plain`, the same functions in plain PyTorch, which
-the tests hold against the JAX package.
+On a CUDA tensor `pq_scan_bins` launches kernel B, chosen by precision
+alone: "int8" (the engines' default) runs on the tensor cores
+(csrc/pq_scan_mma.cu, int8 mma.sync over a one-hot built in registers),
+"default" and "high" on the CUDA cores (csrc/pq_scan.cu, table lookups from
+shared memory). `pq_grouped_scan_bins` launches kernel C, the second entry
+point of csrc/pq_scan.cu, in every precision. Each source is built with nvcc
+at first use into build/kernels/ and bound with ctypes. On a CPU tensor they
+run `_pq_scan_bins_plain` and `_pq_grouped_scan_bins_plain`, the same
+functions in plain PyTorch, which the tests hold against the JAX package.
 """
 from __future__ import annotations
 
@@ -36,22 +40,34 @@ from . import topk as T
 from .pq import unpack_nibbles
 
 _PRECISION_CODE = {"default": 0, "high": 1, "int8": 2}
-_QT = 16                   # queries per block in the kernel
+_QT = 16                   # queries per block in the CUDA-core kernel
+_MMA_BL = 8                # bins per block in the tensor-core kernel
 _MAX_SMEM = 232448         # shared memory a block may use on Hopper
 _INV127 = float(np.float32(1.0) / np.float32(127.0))
 
-build_info: dict = {}   # path, seconds, ptxas report of this process's build
+# lut, scales, codes_t, norms, out_s, out_i, B, N, n_sub, L, seg_len, n_seg,
+# factor, precision, per_bin, stream: both entry points of kernel B
+_SCAN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p])
+build_info: dict = {}       # pq_scan.cu: path, seconds, ptxas report of this process's build
+build_info_mma: dict = {}   # pq_scan_mma.cu: the same
 
 
 def build():
-    """Compile csrc/pq_scan.cu (once per source and flags; it holds both
-    kernels), load it and return the flat scan's entry point."""
-    fn, info = cuda_build.load(
-        "pq_scan.cu", "zvdb_pq_scan_bins",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+    """Compile csrc/pq_scan.cu (once per source and flags; it holds kernel
+    B's CUDA-core route and kernel C), load it and return kernel B's entry
+    point ("default" and "high")."""
+    fn, info = cuda_build.load("pq_scan.cu", "zvdb_pq_scan_bins", _SCAN_ARGTYPES)
     build_info.update(info)
+    return fn
+
+
+def build_mma():
+    """Compile csrc/pq_scan_mma.cu, load it and return kernel B's tensor-core
+    entry point ("int8")."""
+    fn, info = cuda_build.load("pq_scan_mma.cu", "zvdb_pq_scan_bins_mma", _SCAN_ARGTYPES)
+    build_info_mma.update(info)
     return fn
 
 
@@ -202,6 +218,12 @@ def pq_scan_bins(
     ||xhat||^2 - 2 q.xhat (query norm not added), dot/cosine = -q.xhat.
     `chunk` sets the segment geometry as in the JAX package; it and
     `bq_tile` do not change which rows win.
+
+    The route is chosen by precision alone. On a CUDA tensor "int8" launches
+    csrc/pq_scan_mma.cu (tensor cores; counted by `launches` and
+    `launches_mma`), "default" and "high" csrc/pq_scan.cu (CUDA cores;
+    `launches` only); a shape the route cannot take raises ValueError. A CPU
+    tensor takes the plain version and counts nothing.
     """
     _check_args(lut, codes_t, l_bins, bq_tile, chunk, metric, precision, per_bin, seg_rows)
     if lut.device.type == "cpu":
@@ -218,15 +240,44 @@ def pq_scan_bins(
     n = codes_t.shape[1]
     if norms.shape != (n,):
         raise ValueError(f"pq_scan_bins: norms {tuple(norms.shape)} do not match N={n}")
+    n_seg, _ = segments(n, chunk, seg_rows)
+    if n >= 2**31 or n_seg > 65535:
+        raise ValueError("pq_scan_bins: needs N < 2**31 (int32 ids) and at most 65535 segments")
+    mma = precision == "int8"
+    if mma:
+        if -(-l_bins // _MMA_BL) > 65535 or n_sub > 256:
+            raise ValueError(f"pq_scan_bins: int8 needs at most 65535 slices of {_MMA_BL} bins "
+                             "and n_sub <= 256")
+    else:
+        # shared-memory words of the query tile's table: hi and lo planes for "high"
+        words = (2 if precision == "high" else 1) * _QT * n_sub * 16
+        if -(-l_bins // 256) > 65535 or (words + _QT) * 4 > _MAX_SMEM:
+            raise ValueError("pq_scan_bins: needs at most 65535 slices of 256 bins and the "
+                             "query tile's table in shared memory")
+    if b == 0:
+        width = n_seg * per_bin * l_bins
+        return (torch.empty((0, width), dtype=torch.float32, device=dev),
+                torch.empty((0, width), dtype=torch.int32, device=dev))
+    out = launch(build_mma() if mma else build(), lut, codes_t, norms, l_bins, chunk, metric,
+                 precision, per_bin, seg_rows)
+    pq_scan_bins.launches += 1
+    pq_scan_bins.launches_mma += mma
+    return out
+
+
+pq_scan_bins.launches = 0       # every launch of kernel B
+pq_scan_bins.launches_mma = 0   # the launches on the tensor cores ("int8")
+
+
+def launch(kernel, lut, codes_t, norms, l_bins: int, chunk: int, metric: str, precision: str,
+           per_bin: int, seg_rows: int):
+    """Run one of kernel B's entry points on CUDA tensors already checked by
+    `pq_scan_bins` (B >= 1) and return (bin_scores, bin_ids); counts nothing.
+    Raises RuntimeError if the launch fails."""
+    dev = lut.device
+    b, n_sub, _ = lut.shape
+    n = codes_t.shape[1]
     n_seg, seg_len = segments(n, chunk, seg_rows)
-    # shared-memory words of the query tile's table: one per query pair for
-    # int8 (whose 16-bit pair sums hold S <= 256 subspaces), hi and lo planes for high
-    words = {"int8": _QT // 2, "default": _QT, "high": 2 * _QT}[precision] * n_sub * 16
-    if n >= 2**31 or n_seg > 65535 or -(-l_bins // 256) > 65535 \
-            or (words + _QT) * 4 > _MAX_SMEM or (precision == "int8" and n_sub > 256):
-        raise ValueError("pq_scan_bins: needs N < 2**31 (int32 ids), at most 65535 "
-                         "segments and bin slices, the query tile's table in shared memory "
-                         "and, for int8, n_sub <= 256")
     lut_k, scales = _prep_lut(lut, precision)
     lut_k = lut_k.contiguous()
     codes_t = codes_t.contiguous()
@@ -234,9 +285,6 @@ def pq_scan_bins(
     width = n_seg * per_bin * l_bins
     out_s = torch.empty((b, width), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, width), dtype=torch.int32, device=dev)
-    if b == 0:
-        return out_s, out_i
-    kernel = build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = kernel(
@@ -245,11 +293,7 @@ def pq_scan_bins(
             n_seg, 2.0 if metric == "l2" else 1.0, _PRECISION_CODE[precision], per_bin, stream)
     if rc != 0:
         raise RuntimeError(f"pq_scan_bins: kernel launch failed with CUDA error {rc}")
-    pq_scan_bins.launches += 1
     return out_s, out_i
-
-
-pq_scan_bins.launches = 0
 
 
 def pq_scan_topk(
