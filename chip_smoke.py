@@ -6,15 +6,19 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device     - the card's name, count and power limit (nvidia-smi);
-  2. build      - nvcc builds the six sources under zvdb_tpu_torch/csrc/
-                  for sm_90a, all at once: flat_scan.cu (kernel A and D's
-                  CUDA-core entry), pq_scan.cu (B's CUDA-core route and C),
-                  pq_scan_mma.cu (B int8 on the tensor cores), scan_topk.cu
-                  (E and F), hop_scores.cu (G) and block_bins.cu (D on the
-                  tensor cores), each with its ptxas registers and spills;
+  2. build      - nvcc builds the seven sources under zvdb_tpu_torch/csrc/
+                  for sm_90a, all at once: flat_scan_mma.cu (kernel A
+                  "default"/"high" on the tensor cores), flat_scan.cu (A's
+                  and D's "highest" on the CUDA cores), pq_scan.cu (B's
+                  CUDA-core route and C), pq_scan_mma.cu (B int8 on the
+                  tensor cores), scan_topk.cu (E and F), hop_scores.cu (G)
+                  and block_bins.cu (D on the tensor cores), each with its
+                  ptxas registers and spills;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
-                  over a grid of shapes, every precision and metric,
-                  tie-aware; pq_scan over every precision x {l2, dot} x
+                  over a grid of shapes, every precision and metric, f32
+                  and bf16 storage, tie-aware ("default" and "high" on the
+                  tensor cores, launches_mma counted), the tie rule in
+                  every precision; pq_scan over every precision x {l2, dot} x
                   per_bin {1, 2} x {one pool, segment pools}, invalid rows,
                   ragged N, B=1 and duplicated codes, int8 also at n_sub 8,
                   32 and 64, L=100 and L < 64 (int8 on the tensor cores,
@@ -28,11 +32,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                   stand-in, rerank=4, scan="pallas", l_bins=1024) searched in
                   batches of 2048 through the kernel, recall@10 against the
                   port's exact f32 search, launch counts read; then the
-                  single-pass kernel path (rerank=0, precision="high");
+                  single-pass kernel path (rerank=0, precision="high"); on
+                  both, launches == launches_mma == batches (every batch
+                  through the tensor-core kernel);
   5. server     - a SearchServer over that index answers 8 threads' requests
                   with the batched search's ids;
-  6. times      - kernel, plain version, torch.matmul yardstick, bound, QPS of
-                  search and of the server, peak device memory;
+  6. times      - kernel A on the main path's inputs against its plain
+                  version and against the CUDA-core kernel (called
+                  directly) in "default" and "high"; 100 calls each of both
+                  routes in both precisions, the plain version, the f32 and
+                  bf16 torch.matmul yardsticks and the three bf16 products
+                  of "high", the bound with its operation, fold and byte
+                  terms; QPS of search and of the server, peak device
+                  memory, and a torch.profiler breakdown of a search batch;
   7. pq main    - the pq_1m configuration (the same corpus and queries,
                   PQConfig(dim=128) defaults: 4-bit n_sub=16 codes, int8 ADC
                   scan through the kernel, int16 refine, rerank=12) built
@@ -136,6 +148,7 @@ PEAK_F32 = 67e12       # H100 SXM f32 rate outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 CUDA_CORE_INSTR_S = PEAK_F32 / 2   # lane-instructions/s outside the tensor cores (132 SMs x 128 lanes x 1.98 GHz)
 FOLD_INSTR = 9         # CUDA-core instructions per score of kernel B's fold (per_bin=2)
+FOLD_INSTR_A = 5       # per score of kernel A's fold: fma, compare, two selects, the row id
 
 
 class Ctx:
@@ -204,18 +217,18 @@ def phase_build(ctx: Ctx):
         print("build: skipped (rehearsal)")
         return
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:   # one nvcc per source, started together
-        for fut in [pool.submit(fn) for fn in (FS.build, PS.build, PS.build_mma, ST.build_v1,
-                                               HS.build, BS.build_mma)]:
+    with ThreadPoolExecutor(7) as pool:   # one nvcc per source, started together
+        for fut in [pool.submit(fn) for fn in (FS.build_mma, FS.build, PS.build, PS.build_mma,
+                                               ST.build_v1, HS.build, BS.build_mma)]:
             fut.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
     BS.build()                            # kernel D "highest": flat_scan.cu's second entry point
     ST.build_v2()                         # kernel F: the second entry point of scan_topk.cu
-    ctx.report("build seconds (flat_scan.cu, pq_scan.cu, pq_scan_mma.cu, scan_topk.cu, "
-               "hop_scores.cu and block_bins.cu in parallel; seven kernels, nine entry points)",
-               round(time.perf_counter() - t0, 2))
-    for info in (FS.build_info, PS.build_info, PS.build_info_mma, ST.build_info, HS.build_info,
-                 BS.build_info):
+    ctx.report("build seconds (flat_scan_mma.cu, flat_scan.cu, pq_scan.cu, pq_scan_mma.cu, "
+               "scan_topk.cu, hop_scores.cu and block_bins.cu in parallel; seven kernels, ten "
+               "entry points)", round(time.perf_counter() - t0, 2))
+    for info in (FS.build_info_mma, FS.build_info, PS.build_info, PS.build_info_mma,
+                 ST.build_info, HS.build_info, BS.build_info):
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -285,10 +298,13 @@ def check_bins(q, x, norms, l_bins, metric, precision, ks, ki, ps, pi, label):
 def compare_case(ctx, label, q, x, norms, l_bins, metric, precision):
     from zvdb_tpu_torch.ops import flat_scan as FS
 
+    before = FS.flat_scan_bins.launches_mma
     ks, ki = FS.flat_scan_bins(q, x, norms, l_bins=l_bins, chunk=l_bins * 4,
                                metric=metric, precision=precision)
     ps, pi = FS._flat_scan_bins_plain(q, x, norms, l_bins, metric, precision)
     ctx.sync()
+    if not ctx.rehearse and FS.flat_scan_bins.launches_mma != before + (precision != "highest"):
+        raise AssertionError(f"{label}: the tensor-core count did not follow the precision")
     err = check_bins(q, x, norms, l_bins, metric, precision, ks, ki, ps, pi, label)
     print(f"  compare {label}: ok, max |kernel - plain| = {err:.3g}", flush=True)
     return err
@@ -307,10 +323,14 @@ def phase_compare(ctx: Ctx):
     cases += [
         (1, 3001, 128, 1024, "l2", "default", torch.bfloat16),
         (70, 4099, 128, 100, "l2", "high", torch.bfloat16),
+        (70, 4099, 36, 100, "dot", "default", torch.bfloat16),   # bf16 rows, D % 8 != 0
         (8, 2048, 33, 2048, "dot", "highest", torch.float32),
+        (8, 2048, 33, 2048, "dot", "high", torch.float32),
+        (8, 2048, 33, 2048, "cosine", "default", torch.float32),
     ]
     if not ctx.rehearse:
-        cases.append((BATCH, 200_000, 128, 1024, "l2", "default", torch.float32))
+        cases += [(BATCH, 200_000, 128, 1024, "l2", precision, torch.float32)
+                  for precision in ("default", "high")]
 
     # the tie rule: rows L..2L-1 repeat rows 0..L-1, so every bin holds two
     # equal scores and the lower row must win, in every precision
@@ -322,7 +342,8 @@ def phase_compare(ctx: Ctx):
                                   precision=precision)
         if not torch.equal(ki, torch.arange(256, device=dev, dtype=torch.int32).expand(65, -1)):
             raise AssertionError(f"tie rule broken ({precision}): a higher row won a tie")
-    print("  compare tie rule (duplicated rows, every precision): ok", flush=True)
+    print("  compare tie rule (duplicated rows, every precision; default and high on the "
+          "tensor cores): ok", flush=True)
     for b, n, d, l_bins, metric, precision, dtype in cases:
         xq = rng.standard_normal((b, d)).astype(np.float32)
         xc = rng.standard_normal((n, d)).astype(np.float32)
@@ -382,15 +403,17 @@ def phase_main(ctx: Ctx, x1, q1):
     flp.add(x1)
     ctx.sync()
 
-    flat_scan_bins.launches = 0
+    flat_scan_bins.launches = flat_scan_bins.launches_mma = 0
     ids = batched_ids(ctx, flp, q1, **APPROX)
     ctx.sync()
-    launches = flat_scan_bins.launches
+    launches, launches_mma = flat_scan_bins.launches, flat_scan_bins.launches_mma
     rec = recall_at_k(ids, gt, K)
     ctx.report("main path flat_1m_pallas recall@10", rec)
-    ctx.report("main path flat_1m_pallas kernel launches", f"{launches} for {n_batches} batches")
-    if not ctx.rehearse and launches != n_batches:
-        raise AssertionError(f"kernel launched {launches} times for {n_batches} batches")
+    ctx.report("main path flat_1m_pallas kernel launches",
+               f"{launches} (on the tensor cores {launches_mma}) for {n_batches} batches")
+    if not ctx.rehearse and not launches == launches_mma == n_batches:
+        raise AssertionError(f"kernel launched {launches} times ({launches_mma} on the tensor "
+                             f"cores) for {n_batches} batches")
     if rec < 0.95:
         raise AssertionError(f"recall@10 {rec} < 0.95")
 
@@ -398,15 +421,17 @@ def phase_main(ctx: Ctx, x1, q1):
                                   l_bins=ctx.l_bins, pallas_chunk=4 * ctx.l_bins,
                                   pallas_bq=512), capacity=ctx.n, device=dev)
     single.add(x1)
-    flat_scan_bins.launches = 0
+    flat_scan_bins.launches = flat_scan_bins.launches_mma = 0
     ids1 = batched_ids(ctx, single, q1, **APPROX)
     ctx.sync()
-    launches1 = flat_scan_bins.launches
+    launches1, launches1_mma = flat_scan_bins.launches, flat_scan_bins.launches_mma
     rec1 = recall_at_k(ids1, gt, K)
     ctx.report("single-pass kernel path (rerank=0, high) recall@10", rec1)
-    ctx.report("single-pass kernel path launches", f"{launches1} for {n_batches} batches")
-    if not ctx.rehearse and launches1 != n_batches:
-        raise AssertionError(f"kernel launched {launches1} times for {n_batches} batches")
+    ctx.report("single-pass kernel path launches",
+               f"{launches1} (on the tensor cores {launches1_mma}) for {n_batches} batches")
+    if not ctx.rehearse and not launches1 == launches1_mma == n_batches:
+        raise AssertionError(f"kernel launched {launches1} times ({launches1_mma} on the tensor "
+                             f"cores) for {n_batches} batches")
     if rec1 < 0.95:
         raise AssertionError(f"single-pass recall@10 {rec1} < 0.95")
     del single
@@ -507,8 +532,10 @@ def phase_times(ctx: Ctx, flp, q1):
     b, d = qs.shape
     n, L = st.vectors.shape[0], ctx.l_bins
     args = dict(l_bins=L, chunk=4 * L, metric="l2")
+    old = None if ctx.rehearse else FS.build()   # the CUDA-core kernel, called directly
 
     # the kernel on the main path's own inputs, held against its plain version
+    # and against the CUDA-core kernel (both tie-aware: other sum orders)
     err = 0.0
     for precision in ("default", "high"):
         ks, ki = FS.flat_scan_bins(qs, st.vectors, st.norms, precision=precision, **args)
@@ -520,30 +547,65 @@ def phase_times(ctx: Ctx, flp, q1):
               f"max |kernel - plain| = {e:.3g}", flush=True)
         if precision == "default":
             err = e
-        del ks, ki, ps, pi
+        del ps, pi
+        if old is not None:
+            os_, oi = FS.launch(old, qs, st.vectors, st.norms, L, "l2", precision)
+            ctx.sync()
+            e = check_bins(qs, st.vectors, st.norms, L, "l2", precision, ks, ki, os_, oi,
+                           f"main-path inputs {precision}, tensor cores vs CUDA cores")
+            print(f"  compare main-path inputs {precision}: tensor cores vs CUDA cores ok, "
+                  f"max |difference| = {e:.3g}", flush=True)
+            del os_, oi
+        del ks, ki
 
-    ms = ctx.time_ms(lambda: FS.flat_scan_bins(qs, st.vectors, st.norms,
-                                               precision="default", **args), reps=10)
-    ms_high = ctx.time_ms(lambda: FS.flat_scan_bins(qs, st.vectors, st.norms,
-                                                    precision="high", **args), reps=5)
+    # 100 calls per time on the card: fewer read a host stall after the
+    # server phase as kernel time
+    reps = 3 if ctx.rehearse else 100
+    ms = {p: ctx.time_ms(lambda p=p: FS.flat_scan_bins(qs, st.vectors, st.norms, precision=p,
+                                                       **args), reps=reps, warmup=3)
+          for p in ("default", "high")}
+    old_ms = {p: ctx.time_ms(lambda p=p: FS.launch(old, qs, st.vectors, st.norms, L, "l2", p),
+                             reps=reps)
+              for p in ("default", "high")} if old is not None else {}
     plain_ms = ctx.time_ms(lambda: FS._flat_scan_bins_plain(qs, st.vectors, st.norms, L,
                                                             "l2", "default"), reps=3)
-    qb = qs.to(torch.bfloat16).float()
-    xb = st.vectors.to(torch.bfloat16).float()
-    library_ms = ctx.time_ms(lambda: torch.matmul(qb, xb.T), reps=5)
-    del qb, xb
+    # yardsticks, the product part alone: f32 on the bf16-rounded operands
+    # (TF32 off), one bf16 product, and the three bf16 products of "high"
+    qb, xb = qs.to(torch.bfloat16), st.vectors.to(torch.bfloat16)
+    qf, xf = qb.float(), xb.float()
+    library_ms = ctx.time_ms(lambda: torch.matmul(qf, xf.T), reps=5)
+    qlo = (qs - qf).to(torch.bfloat16)
+    xlo = (st.vectors.float() - xf).to(torch.bfloat16)
+    del qf, xf
+    bf16_ms = ctx.time_ms(lambda: torch.matmul(qb, xb.T), reps=10)
+    split_ms = ctx.time_ms(lambda: (torch.matmul(qb, xb.T), torch.matmul(qb, xlo.T),
+                                    torch.matmul(qlo, xb.T)), reps=5)
+    del qb, xb, qlo, xlo
     ops = 2.0 * b * n * d
     nbytes = n * d * st.vectors.element_size() + n * 4 + b * d * 4 + b * L * 8
     bound_ops, bound_bytes = ops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
-    bound_ms = max(bound_ops, bound_bytes)
-    ctx.report("kernel ms (default, B=2048 N=1M D=128 L=1024)", ms)
-    ctx.report("kernel ms (high)", ms_high)
-    ctx.report("kernel achieved TFLOP/s (default)", ops / (ms * 1e-3) / 1e12)
+    bound_fold = b * n * FOLD_INSTR_A / CUDA_CORE_INSTR_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes, bound_fold)
+    shape = f"B={b} N={n} D={d} L={L}"
+    for p, t in ms.items():
+        ctx.report(f"kernel ms ({p}, tensor cores, flat_scan_mma.cu, {shape}, {reps} calls)", t)
+    for p, t in old_ms.items():
+        ctx.report(f"kernel ms ({p}, CUDA cores, flat_scan.cu called directly, {reps} calls)",
+                   f"{t} ({t / ms[p]:.2f}x the tensor-core kernel's time)")
+    ctx.report("kernel achieved TFLOP/s (default 1 product, high 3)",
+               f"{ops / (ms['default'] * 1e-3) / 1e12} default, "
+               f"{3 * ops / (ms['high'] * 1e-3) / 1e12} high")
     ctx.report("plain version ms (default)", plain_ms)
-    ctx.report("torch.matmul yardstick ms (bf16-rounded [2048,128]x[128,1M] in f32)", library_ms)
-    ctx.report("bound ms (default: bf16 ops / 989 TFLOP/s vs bytes / 3.35 TB/s)",
-               f"{bound_ms} (ops {bound_ops}, bytes {bound_bytes})")
-    ctx.report("bound ms (high, 3x bf16 ops)", 3 * bound_ops)
+    ctx.report("torch.matmul yardstick ms (bf16-rounded [2048,128]x[128,1M] in f32, TF32 off)",
+               library_ms)
+    ctx.report("torch.matmul bf16 yardstick ms (one bf16 product, bf16 output)", bf16_ms)
+    ctx.report("torch.matmul bf16 yardstick ms (the split's three products hi.hi, hi.lo, "
+               "lo.hi)", split_ms)
+    ctx.report(f"bound ms (default: max of bf16 ops / 989 TFLOP/s, B*N*{FOLD_INSTR_A} fold "
+               "instructions / (132 SMs x 128 lanes x 1.98 GHz), bytes / 3.35 TB/s)",
+               f"{bound_ms} (ops {bound_ops}, fold {bound_fold}, bytes {bound_bytes}); share "
+               f"of the bound {bound_ms / ms['default']}")
+    ctx.report("bound ms (high, 3x bf16 ops)", max(3 * bound_ops, bound_fold, bound_bytes))
     ctx.report("bound ms (highest, f32 ops / 67 TFLOP/s)", ops / PEAK_F32 * 1e3)
 
     ctx.report("search QPS (batches of 2048, 3 runs)", search_qps(ctx, flp, q1))
@@ -551,8 +613,10 @@ def phase_times(ctx: Ctx, flp, q1):
     if dev.type == "cuda":
         ctx.report("peak device memory GB (max_memory_allocated)",
                    torch.cuda.max_memory_allocated() / 1e9)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                max_abs_err=err)
+    profile_search(ctx, flp, q1, label="flat_1m_pallas")
+    return dict(ms=ms["default"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                max_abs_err=err,
+                bound_by="operations" if max(bound_ops, bound_fold) >= bound_bytes else "bytes")
 
 
 def pq_inputs(rng, b, n, n_sub, metric, dev, invalid_every=0, dup_rows=0):
@@ -1260,7 +1324,8 @@ def kernel_counts():
     from zvdb_tpu_torch.ops import flat_scan as FS
     from zvdb_tpu_torch.ops import pq_scan as PS
 
-    return dict(A=FS.flat_scan_bins.launches, B=PS.pq_scan_bins.launches,
+    return dict(A=FS.flat_scan_bins.launches, A_mma=FS.flat_scan_bins.launches_mma,
+                B=PS.pq_scan_bins.launches,
                 B_mma=PS.pq_scan_bins.launches_mma, C=PS.pq_grouped_scan_bins.launches,
                 D=BS.block_bins.launches, D_mma=BS.block_bins.launches_mma)
 
@@ -1270,8 +1335,8 @@ def reset_kernel_counts():
     from zvdb_tpu_torch.ops import flat_scan as FS
     from zvdb_tpu_torch.ops import pq_scan as PS
 
-    FS.flat_scan_bins.launches = PS.pq_scan_bins.launches = 0
-    PS.pq_scan_bins.launches_mma = 0
+    FS.flat_scan_bins.launches = FS.flat_scan_bins.launches_mma = 0
+    PS.pq_scan_bins.launches = PS.pq_scan_bins.launches_mma = 0
     PS.pq_grouped_scan_bins.launches = BS.block_bins.launches = 0
     BS.block_bins.launches_mma = 0
 
@@ -1758,14 +1823,14 @@ def main() -> int:
     record = {"kernels": [{
         "name": "flat_scan_bins",
         "route": "cuda",
-        "source": "zvdb_tpu_torch/csrc/flat_scan.cu",
+        "source": "zvdb_tpu_torch/csrc/flat_scan_mma.cu",
         "replaces": "zvdb_tpu/ops/pallas_topk.py:113",
         "launches": launches,
         "max_abs_err": t["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
-        "bound_by": "operations",
+        "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }, {
         "name": "pq_scan_bins",

@@ -1,6 +1,11 @@
-// Fused flat scan with a per-query bin fold, for Hopper (sm_90a).
+// Fused flat scan with a per-query bin fold on the CUDA cores, for Hopper
+// (sm_90a): the "highest" route of kernels A and D.
 //
-// Replaces zvdb_tpu/ops/pallas_topk.py:_scan_kernel (wrapper flat_scan_bins).
+// Replaces zvdb_tpu/ops/pallas_topk.py:_scan_kernel (wrapper flat_scan_bins)
+// in "highest", whose f32 products cannot use the bf16 tensor cores; its
+// "default" and "high" run on the tensor cores in csrc/flat_scan_mma.cu
+// (and kernel D's in csrc/block_bins.cu). The entry point still takes every
+// precision, so the tensor-core kernels can be held against it.
 // For every query b and every bin l in [0, L) it computes
 //
 //     bin_s[b, l] = min over rows c with c % L == l of  norms[c] - f * (q[b] . x[c])
@@ -18,10 +23,9 @@
 // What bounds it. Per call the work is B*N*D multiply-adds (2*2048*1M*128 =
 // 5.2e11 operations at the main-path shape), against one read of the corpus
 // (512 MB in f32): about 1000 operations per byte, far above the H100's ridge,
-// so the kernel is bound by arithmetic, never by memory. Its floor is the
-// tensor-core rate (0.53 ms in bf16); this kernel runs on the CUDA cores'
-// f32 FMA pipes instead (67 TFLOP/s peak, 7.8 ms at the main-path shape), so
-// it is a first, correct version and tensor cores (wgmma) and TMA come later.
+// so the kernel is bound by arithmetic, never by memory. In "highest" its
+// floor is the f32 FMA pipes' rate (67 TFLOP/s peak, 7.8 ms at the
+// main-path shape), where it runs.
 //
 // What the design does about it. The Pallas grid walked corpus chunks in
 // order and carried the bins in VMEM from one grid step to the next. CUDA

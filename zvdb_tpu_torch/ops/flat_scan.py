@@ -8,9 +8,13 @@ Overall selection recall is the bin collision bound L/k*(1-(1-1/L)^k)
 (k=10: 0.983 at L=256, 0.996 at L=1024). Scores never reach device memory:
 traffic is the corpus, the queries and the [B, L] bins.
 
-On a CUDA tensor `flat_scan_bins` launches the hand-written kernel in
-csrc/flat_scan.cu (built with nvcc at first use into build/kernels/ and bound
-with ctypes); on a CPU tensor it runs `_flat_scan_bins_plain`, the same
+On a CUDA tensor `flat_scan_bins` launches kernel A, chosen by precision
+alone: "default" (the engine's rerank path) and "high" run on the tensor
+cores (csrc/flat_scan_mma.cu, bf16 mma.sync with the bin fold on the
+accumulator fragments), "highest" on the CUDA cores' f32 pipes
+(csrc/flat_scan.cu), since f32 products cannot use the bf16 tensor cores.
+Each source is built with nvcc at first use into build/kernels/ and bound
+with ctypes. On a CPU tensor it runs `_flat_scan_bins_plain`, the same
 function in plain PyTorch, which the tests hold against the JAX package.
 """
 from __future__ import annotations
@@ -23,21 +27,39 @@ from . import cuda_build
 from . import distance as D
 
 _PRECISION_CODE = {"highest": 0, "high": 1, "default": 2}
-_MAX_BINS = 65535 * 64   # the kernel's grid holds L/64 bin slices in gridDim.y
+_MAX_BINS = 65535 * 64   # both kernels' grids hold L/64 bin slices in gridDim.y
+# q, x, x_is_bf16, norms, out_s, out_i, B, N, D, L, factor, precision, stream:
+# both entry points of kernel A
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
-build_info: dict = {}   # path, seconds, ptxas report of this process's build
+build_info: dict = {}       # flat_scan.cu: path, seconds, ptxas report of this process's build
+build_info_mma: dict = {}   # flat_scan_mma.cu: the same
 
 
 def build():
-    """Compile csrc/flat_scan.cu (once per source and flags), load it and
-    return its entry point."""
-    fn, info = cuda_build.load(
-        "flat_scan.cu", "zvdb_flat_scan_bins",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    """Compile csrc/flat_scan.cu (once per source and flags; it holds kernel
+    A's and kernel D's CUDA-core entry points), load it and return kernel
+    A's ("highest")."""
+    fn, info = cuda_build.load("flat_scan.cu", "zvdb_flat_scan_bins", _ARGTYPES)
     build_info.update(info)
     return fn
+
+
+def build_mma():
+    """Compile csrc/flat_scan_mma.cu, load it and return kernel A's
+    tensor-core entry point ("default" and "high")."""
+    fn, info = cuda_build.load("flat_scan_mma.cu", "zvdb_flat_scan_bins_mma", _ARGTYPES)
+    build_info_mma.update(info)
+    return fn
+
+
+def _entry_point(precision: str):
+    """Kernel A's build function for `precision`: the tensor cores
+    (`build_mma`) for "default" and "high", the CUDA cores (`build`) for
+    "highest"."""
+    return build if precision == "highest" else build_mma
 
 
 def _check_args(l_bins: int, bq_tile: int, chunk: int, metric: str, precision: str):
@@ -91,6 +113,11 @@ def flat_scan_bins(
     convention: ||x||^2 - 2 q.x for l2 (query norm not added), -q.x otherwise.
     `chunk` and `bq_tile` are validated as the JAX package does; they do not
     change results.
+
+    The route is chosen by precision alone. On a CUDA tensor "default" and
+    "high" launch csrc/flat_scan_mma.cu (tensor cores; counted by `launches`
+    and `launches_mma`), "highest" csrc/flat_scan.cu (CUDA cores; `launches`
+    only). A CPU tensor takes the plain version and counts nothing.
     """
     _check_args(l_bins, bq_tile, chunk, metric, precision)
     if q.device.type == "cpu":
@@ -108,14 +135,31 @@ def flat_scan_bins(
                          f"{tuple(vectors.shape)}, norms {tuple(norms.shape)} disagree")
     if l_bins > _MAX_BINS or n >= 2**31:
         raise ValueError(f"flat_scan_bins: needs l_bins <= {_MAX_BINS} and N < 2**31 (int32 ids)")
+    if b == 0:
+        return (torch.empty((0, l_bins), dtype=torch.float32, device=q.device),
+                torch.empty((0, l_bins), dtype=torch.int32, device=q.device))
+    build_fn = _entry_point(precision)
+    out = launch(build_fn(), q, vectors, norms, l_bins, metric, precision)
+    flat_scan_bins.launches += 1
+    flat_scan_bins.launches_mma += build_fn is build_mma
+    return out
+
+
+flat_scan_bins.launches = 0       # every launch of kernel A
+flat_scan_bins.launches_mma = 0   # the launches on the tensor cores ("default", "high")
+
+
+def launch(kernel, q, vectors, norms, l_bins: int, metric: str, precision: str):
+    """Run one of kernel A's entry points on CUDA tensors already checked by
+    `flat_scan_bins` (B >= 1) and return (bin_scores, bin_ids); counts
+    nothing. Raises RuntimeError if the launch fails."""
+    b, d = q.shape
+    n = vectors.shape[0]
     q = q.contiguous()
     vectors = vectors.contiguous()
     norms = norms.contiguous()
     out_s = torch.empty((b, l_bins), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, l_bins), dtype=torch.int32, device=q.device)
-    if b == 0:
-        return out_s, out_i
-    kernel = build()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = kernel(
@@ -124,11 +168,7 @@ def flat_scan_bins(
             2.0 if metric == "l2" else 1.0, _PRECISION_CODE[precision], stream)
     if rc != 0:
         raise RuntimeError(f"flat_scan_bins: kernel launch failed with CUDA error {rc}")
-    flat_scan_bins.launches += 1
     return out_s, out_i
-
-
-flat_scan_bins.launches = 0
 
 
 def flat_scan_topk(
