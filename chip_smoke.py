@@ -6,14 +6,16 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device     - the card's name, count and power limit (nvidia-smi);
-  2. build      - nvcc builds the seven sources under zvdb_tpu_torch/csrc/
+  2. build      - nvcc builds the eight sources under zvdb_tpu_torch/csrc/
                   for sm_90a, all at once: flat_scan_mma.cu (kernel A
                   "default"/"high" on the tensor cores), flat_scan.cu (A's
                   and D's "highest" on the CUDA cores), pq_scan.cu (B's
                   CUDA-core route and C), pq_scan_mma.cu (B int8 on the
-                  tensor cores), scan_topk.cu (E and F), hop_scores.cu (G)
-                  and block_bins.cu (D on the tensor cores), each with its
-                  ptxas registers and spills;
+                  tensor cores), scan_topk_mma.cu (E, its tensor-core
+                  filter and exact re-scoring), scan_topk.cu (F and the
+                  CUDA-core E), hop_scores.cu (G) and block_bins.cu (D on
+                  the tensor cores), each with its ptxas registers and
+                  spills;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
                   over a grid of shapes, every precision and metric, f32
                   and bf16 storage, tie-aware ("default" and "high" on the
@@ -104,17 +106,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                   config's precision), and a torch.profiler breakdown of a
                   search batch;
  17. scan compare - kernels E and F (the exact flat top-k scans
-                  flat_topk_pallas / flat_topk_pallas2, csrc/scan_topk.cu)
-                  against their plain version over {l2, dot} x chunk {256,
-                  2048} x k {1, 10, 100}, a ragged N, B=1, N < k, N < chunk
-                  and the main path's width, tie-aware, E == F id for id; the
-                  40-equal-rows tie probe id for id;
+                  flat_topk_pallas on the tensor cores, csrc/scan_topk_mma.cu,
+                  and flat_topk_pallas2, csrc/scan_topk.cu) against their
+                  plain version over {l2, dot} x chunk {256, 2048} x k {1,
+                  10, 100}, a ragged N, B=1, N < k, N < chunk, k=256 at
+                  chunk=4096, D=1024, D=33 on a misaligned x, B=17, an
+                  overflowing candidate list (600 duplicates of query 0's
+                  nearest row and 100 rows 1 ulp away, k=100), rows of norm
+                  ~1e3 around a query near the origin, and the main path's
+                  width, tie-aware; on every case E == F == the CUDA-core E
+                  (called uncounted) with torch.equal; the 40-equal-rows
+                  tie probe id for id;
  18. scan main  - the exact top-10 of every query over the 1M x 128d corpus
                   through E, then F, in batches of 2048 at their defaults:
-                  launches == batches, recall@10 >= 0.999 against phase 4's
-                  exact search (every other id a near-tie), each kernel on the
-                  first batch against its plain version; ms per batch, plain
-                  version, the product + selection yardstick, bound;
+                  launches == launches_mma == batches for E, launches ==
+                  batches for F, E == F bit for bit, recall@10 >= 0.999
+                  against phase 4's exact search (every other id a
+                  near-tie), each kernel on the first batch against its
+                  plain version and E against the CUDA-core E; ms per
+                  batch of E (100 calls) and the CUDA-core E (100), F (20)
+                  and its two passes apart, the pre-pass's share (its
+                  time alone, 100 calls), the filter's counts (candidates per
+                  query and chunk, overflows, cold chunks), the corpus
+                  bytes the query tiles read, the plain version, the
+                  product + selection yardstick, both bounds;
  19. hop        - kernel G (fused_hop_scores, csrc/hop_scores.cu) against
                   its plain version (gather + einsum) at small shapes with
                   duplicated ids, then over the corpus at the experiment's
@@ -217,18 +232,20 @@ def phase_build(ctx: Ctx):
         print("build: skipped (rehearsal)")
         return
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:   # one nvcc per source, started together
+    with ThreadPoolExecutor(8) as pool:   # one nvcc per source, started together
         for fut in [pool.submit(fn) for fn in (FS.build_mma, FS.build, PS.build, PS.build_mma,
-                                               ST.build_v1, HS.build, BS.build_mma)]:
+                                               ST.build_v1, ST.build_v1_mma, HS.build,
+                                               BS.build_mma)]:
             fut.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
     BS.build()                            # kernel D "highest": flat_scan.cu's second entry point
     ST.build_v2()                         # kernel F: the second entry point of scan_topk.cu
+    ST.build_v2_passes()                  # ... and F's passes apart, for their times
     ctx.report("build seconds (flat_scan_mma.cu, flat_scan.cu, pq_scan.cu, pq_scan_mma.cu, "
-               "scan_topk.cu, hop_scores.cu and block_bins.cu in parallel; seven kernels, ten "
-               "entry points)", round(time.perf_counter() - t0, 2))
+               "scan_topk.cu, scan_topk_mma.cu, hop_scores.cu and block_bins.cu in parallel; "
+               "seven kernels, twelve entry points)", round(time.perf_counter() - t0, 2))
     for info in (FS.build_info_mma, FS.build_info, PS.build_info, PS.build_info_mma,
-                 ST.build_info, HS.build_info, BS.build_info):
+                 ST.build_info, ST.build_info_mma, HS.build_info, BS.build_info):
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1323,22 +1340,28 @@ def kernel_counts():
     from zvdb_tpu_torch.ops import block_scan as BS
     from zvdb_tpu_torch.ops import flat_scan as FS
     from zvdb_tpu_torch.ops import pq_scan as PS
+    from zvdb_tpu_torch.ops import scan_topk as ST
 
     return dict(A=FS.flat_scan_bins.launches, A_mma=FS.flat_scan_bins.launches_mma,
                 B=PS.pq_scan_bins.launches,
                 B_mma=PS.pq_scan_bins.launches_mma, C=PS.pq_grouped_scan_bins.launches,
-                D=BS.block_bins.launches, D_mma=BS.block_bins.launches_mma)
+                D=BS.block_bins.launches, D_mma=BS.block_bins.launches_mma,
+                E=ST.flat_topk_pallas.launches, E_mma=ST.flat_topk_pallas.launches_mma,
+                F=ST.flat_topk_pallas2.launches)
 
 
 def reset_kernel_counts():
     from zvdb_tpu_torch.ops import block_scan as BS
     from zvdb_tpu_torch.ops import flat_scan as FS
     from zvdb_tpu_torch.ops import pq_scan as PS
+    from zvdb_tpu_torch.ops import scan_topk as ST
 
     FS.flat_scan_bins.launches = FS.flat_scan_bins.launches_mma = 0
     PS.pq_scan_bins.launches = PS.pq_scan_bins.launches_mma = 0
     PS.pq_grouped_scan_bins.launches = BS.block_bins.launches = 0
     BS.block_bins.launches_mma = 0
+    ST.flat_topk_pallas.launches = ST.flat_topk_pallas.launches_mma = 0
+    ST.flat_topk_pallas2.launches = 0
 
 
 def phase_cagra_main(ctx: Ctx, x1, q1, gt):
@@ -1549,45 +1572,114 @@ def _topk_inputs(rng, n, d, b, dev, dup=0):
     return torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
 
 
+def _overflow_inputs(rng, dev):
+    """Query 0's nearest row repeated 600 times past the first chunks (rows
+    5000-5599), then 100 rows 1 ulp away from it in one coordinate: at
+    k=100 query 0's candidate list overflows."""
+    x = rng.standard_normal((20_000, 64)).astype(np.float32)
+    q = rng.standard_normal((24, 64)).astype(np.float32)
+    near = int(np.argmin(((x - q[0]) ** 2).sum(1)))
+    x[5000:5600] = x[near]
+    x[5600:5700] = x[near]
+    x[5600:5700, 0] = np.nextafter(x[near, 0], np.float32(np.inf))
+    return torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+
+
+def _far_inputs(rng, dev):
+    """Rows of norm ~1e3 around a query near the origin: ||x||^2 ~ 1e6
+    against dots ~1e-1, where an l2 score cancels most."""
+    x = rng.standard_normal((8_000, 64)).astype(np.float32)
+    x = x / np.linalg.norm(x, axis=1, keepdims=True) * (1e3 + rng.standard_normal((8_000, 1)))
+    q = (1e-3 * rng.standard_normal((16, 64))).astype(np.float32)
+    return torch.from_numpy(q).to(dev), torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def _misaligned(x):
+    """x as a contiguous view whose data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _scan_stats(ST, q, x, k, metric, chunk):
+    """The tensor-core E's filter counters for one uncounted launch."""
+    st = torch.zeros(5, dtype=torch.int64, device=q.device)
+    ST.launch(ST.build_v1_mma(), q, x, k, metric, chunk, stats=st)
+    return dict(zip(ST._STATS, st.tolist()))
+
+
 def phase_compare_scan(ctx: Ctx):
     from zvdb_tpu_torch.ops import scan_topk as ST
 
     rng = np.random.default_rng(654)
     dev = ctx.device
-    # (N, D, B, k, metric, chunk)
-    cases = [(5000, 128, 37, k, metric, chunk)
+    old_e = None if ctx.rehearse else ST.build_v1()
+    # (N, D, B, k, metric, chunk, inputs); inputs None: seeded normal rows
+    cases = [(5000, 128, 37, k, metric, chunk, None)
              for metric in ("l2", "dot") for chunk in (256, 2048) for k in (1, 10, 100)]
-    cases += [(5003, 40, 70, 100, "l2", 256),    # ragged N: the last chunk's tail past N
-              (3000, 33, 1, 10, "dot", 2048),     # B=1, D % 4 != 0 (the scalar path)
-              (5, 16, 9, 10, "l2", 256),          # N < k: slots past N stay +inf / -1
-              (700, 64, 513, 10, "l2", 2048)]     # N < chunk, B no multiple of the tile
+    cases += [(5003, 40, 70, 100, "l2", 256, None),    # ragged N: the last chunk's tail past N
+              (3000, 33, 1, 10, "dot", 2048, None),     # B=1, D % 4 != 0 (the scalar path)
+              (5, 16, 9, 10, "l2", 256, None),          # N < k: slots past N stay +inf / -1
+              (700, 64, 513, 10, "l2", 2048, None),     # N < chunk, B no multiple of the tile
+              (20_000, 64, 37, 256, "l2", 4096, None),  # the largest k and chunk
+              (5000, 1024, 20, 10, "dot", 2048, None),  # the deepest D
+              (5000, 33, 19, 10, "l2", 256, "misaligned"),   # D = 33 on a misaligned x
+              (6000, 128, 17, 10, "l2", 2048, None),    # B = 17, no multiple of 16
+              (20_000, 64, 24, 100, "l2", 2048, "overflow"),
+              (8_000, 64, 16, 10, "l2", 2048, "far")]
     if not ctx.rehearse:
-        cases.append((200_000, 128, BATCH, 10, "l2", 2048))   # the main path's width
-    for n, d, b, k, metric, chunk in cases:
-        q, x = _topk_inputs(rng, n, d, b, dev)
+        cases.append((200_000, 128, BATCH, 10, "l2", 2048, None))   # the main path's width
+    for n, d, b, k, metric, chunk, kind in cases:
+        if kind == "overflow":
+            q, x = _overflow_inputs(rng, dev)
+        elif kind == "far":
+            q, x = _far_inputs(rng, dev)
+        else:
+            q, x = _topk_inputs(rng, n, d, b, dev)
+            if kind == "misaligned" and dev.type == "cuda":
+                x = _misaligned(x)
+                assert x.data_ptr() % 16 == 4
         ps, pi = ST._flat_topk_plain(q, x, k, metric, chunk=chunk)
         es, ei = ST.flat_topk_pallas(q, x, k, metric, chunk=chunk)
         fs, fi = ST.flat_topk_pallas2(q, x, k, metric, chunk=chunk)
         ctx.sync()
-        label = f"topk N={n} D={d} B={b} k={k} {metric} chunk={chunk}"
+        label = f"topk N={n} D={d} B={b} k={k} {metric} chunk={chunk}" + \
+            (f" ({kind})" if kind else "")
         if not (torch.equal(ei, fi) and torch.equal(es, fs)):
             raise AssertionError(f"{label}: E and F differ")
+        extra = ""
+        if old_e is not None:   # the CUDA-core E, uncounted: equal bit for bit
+            os_, oi = ST.launch(old_e, q, x, k, metric, chunk)
+            ctx.sync()
+            if not (torch.equal(oi, ei) and torch.equal(os_, es)):
+                raise AssertionError(f"{label}: E differs from the CUDA-core E")
+            extra = " == CUDA-core E"
+            if kind in ("overflow", "far") or k == 256:
+                st = _scan_stats(ST, q, x, k, metric, chunk)
+                if kind == "overflow" and st["overflowed"] < 1:
+                    raise AssertionError(f"{label}: no candidate list overflowed ({st})")
+                extra += f", filter counts {st}"
         err, rows = check_topk(q, x, metric, es, ei, ps, pi, label)
-        print(f"  compare {label}: ok, E == F, max |kernel - plain| = {err:.3g}, "
+        print(f"  compare {label}: ok, E == F{extra}, max |kernel - plain| = {err:.3g}, "
               f"{rows} rows with other ids (near-ties)", flush=True)
 
     # the tie rule: 40 equal rows; the lower row wins an extraction, the first
     # worst slot is replaced and an equal score is never taken
     want = [0, 308, 307, 306, 305, 304, 303, 302, 301, 300]
+    fns = [ST.flat_topk_pallas, ST.flat_topk_pallas2]
+    if old_e is not None:
+        fns.append(lambda q, x, k, metric, chunk: ST.launch(old_e, q, x, k, metric, chunk))
     for metric in ("l2", "dot"):
         q, x = _topk_inputs(rng, 1000, 16, 32, dev, dup=40)
         _, pi = ST._flat_topk_plain(q, x, 10, metric, chunk=256)
-        for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2):
+        for i, fn in enumerate(fns):
             _, ki = fn(q, x, 10, metric, chunk=256)
             if not torch.equal(ki[0], pi[0]) or (metric == "l2" and ki[0].tolist() != want):
-                raise AssertionError(f"topk tie rule broken ({fn.__name__}, {metric}): "
+                raise AssertionError(f"topk tie rule broken (entry {i}, {metric}): "
                                      f"{ki[0].tolist()} vs plain {pi[0].tolist()}")
-    print(f"  compare topk tie rule (40 equal rows, l2 and dot, E and F): ok, {want}", flush=True)
+    print(f"  compare topk tie rule (40 equal rows, l2 and dot, E, F and the CUDA-core E): ok, "
+          f"{want}", flush=True)
 
 
 def phase_scan_main(ctx: Ctx, x1, q1, gt):
@@ -1601,24 +1693,28 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
     qb = [torch.from_numpy(q1[lo:lo + ctx.batch]).to(dev) for lo in range(0, q1.shape[0], ctx.batch)]
     ctx.sync()
 
-    ST.flat_topk_pallas.launches = ST.flat_topk_pallas2.launches = 0
-    ids = {}
+    reset_kernel_counts()
+    ids, scores = {}, {}
     for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2):
         t0 = time.perf_counter()
-        ids[fn.__name__] = torch.cat([fn(qq, xd, K)[1] for qq in qb])
+        out = [fn(qq, xd, K) for qq in qb]
+        scores[fn.__name__] = torch.cat([o[0] for o in out])
+        ids[fn.__name__] = torch.cat([o[1] for o in out])
         ctx.sync()
         ctx.report(f"scan main {fn.__name__} seconds for {len(qb)} batches (host clock)",
                    round(time.perf_counter() - t0, 3))
-    launches = {"E": ST.flat_topk_pallas.launches, "F": ST.flat_topk_pallas2.launches}
+    counts = kernel_counts()
+    launches = {"E": counts["E"], "E_mma": counts["E_mma"], "F": counts["F"]}
     ctx.report("scan main launches", f"{launches} for {len(qb)} batches")
-    if not ctx.rehearse and launches != {"E": len(qb), "F": len(qb)}:
+    if not ctx.rehearse and launches != {"E": len(qb), "E_mma": len(qb), "F": len(qb)}:
         raise AssertionError(f"scan kernels launched {launches} for {len(qb)} batches")
     ei, fi = ids["flat_topk_pallas"], ids["flat_topk_pallas2"]
-    if not torch.equal(ei, fi):
-        raise AssertionError("scan main: E and F ids differ")
+    if not (torch.equal(ei, fi) and torch.equal(scores["flat_topk_pallas"],
+                                                scores["flat_topk_pallas2"])):
+        raise AssertionError("scan main: E and F differ")
     ids_np = ei.cpu().numpy()
     rec = recall_at_k(ids_np, gt, K)
-    ctx.report("scan main recall@10 (E == F) against the exact f32 flat search", rec)
+    ctx.report("scan main recall@10 (E == F bit for bit) against the exact f32 flat search", rec)
     if rec < 0.999:
         raise AssertionError(f"scan main recall@10 {rec} < 0.999")
     # every id outside the oracle's row is a near-tie of the oracle's 10th
@@ -1639,6 +1735,7 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
     del qd, gtd
 
     # the kernels on the main path's first batch, held against the plain version
+    # and, on the card, the CUDA-core E against the tensor-core E bit for bit
     q0 = qb[0]
     ps, pi = ST._flat_topk_plain(q0, xd, K)
     errs = {}
@@ -1649,14 +1746,37 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
                                              f"scan main first batch {fn.__name__}")
         print(f"  compare scan main first batch {fn.__name__}: ok, max |kernel - plain| = "
               f"{errs[fn.__name__]:.3g}, {rows} rows with other ids", flush=True)
-
-    # times per batch of 2048: each entry point, the plain version, and the
-    # yardstick (product + selection: an f32 matmul per 131,072 rows, then
-    # torch.topk, merged)
     b, d = q0.shape
     n = xd.shape[0]
-    ms = {fn.__name__: ctx.time_ms(lambda fn=fn: fn(q0, xd, K), reps=3)
-          for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2)}
+    shape = f"B={b} N={n} D={d} k={K} chunk=2048"
+    if ctx.rehearse:
+        ms = {fn.__name__: ctx.time_ms(lambda fn=fn: fn(q0, xd, K), reps=1)
+              for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2)}
+        st = {"candidates": 0, "most_in_a_list": 0, "overflowed": 0, "cold": 0, "lists": 1}
+    else:
+        old_e = ST.build_v1()
+        os_, oi = ST.launch(old_e, q0, xd, K)
+        ks, ki = ST.flat_topk_pallas(q0, xd, K)
+        ctx.sync()
+        if not (torch.equal(oi, ki) and torch.equal(os_, ks)):
+            raise AssertionError("scan main first batch: E differs from the CUDA-core E")
+        print("  compare scan main first batch: E == the CUDA-core E bit for bit", flush=True)
+        st = _scan_stats(ST, q0, xd, K, "l2", 2048)
+        # 100 calls each of E on both routes (fewer read host stalls), F 20
+        ms = {"flat_topk_pallas": ctx.time_ms(lambda: ST.flat_topk_pallas(q0, xd, K), reps=100,
+                                              warmup=2)}
+        ms["cuda_core_e"] = ctx.time_ms(lambda: ST.launch(old_e, q0, xd, K), reps=100)
+        ms["flat_topk_pallas2"] = ctx.time_ms(lambda: ST.flat_topk_pallas2(q0, xd, K), reps=20)
+        # F's passes apart: the pairs pass, then the fold over what it wrote
+        _, _, pairs = ST.launch_f_passes(q0, xd, K, passes=1)
+        ms["f_pairs"] = ctx.time_ms(lambda: ST.launch_f_passes(q0, xd, K, passes=1, pairs=pairs),
+                                    reps=20)
+        ms["f_fold"] = ctx.time_ms(lambda: ST.launch_f_passes(q0, xd, K, passes=2, pairs=pairs),
+                                   reps=100)
+        ms["e_prepass"] = ctx.time_ms(lambda: ST.launch_prep(q0, xd, K), reps=100)
+        ctx.report("scan E pre-pass share (its time alone over E's)",
+                   f"{ms['e_prepass']:.4f} of {ms['flat_topk_pallas']:.4f} ms "
+                   f"({100 * ms['e_prepass'] / ms['flat_topk_pallas']:.2f}%)")
     plain_ms = ctx.time_ms(lambda: ST._flat_topk_plain(q0, xd, K), reps=1, warmup=0)
     norms = (xd * xd).sum(1)
 
@@ -1673,25 +1793,49 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
             best_s, best_i = v, i
         return best_s, best_i
 
-    library_ms = ctx.time_ms(product_selection, reps=3)
-    ops = 2.0 * b * n * d
+    library_ms = ctx.time_ms(product_selection, reps=10)
+
+    # bounds: the f32 function (F, the CUDA-core E), and the tensor-core E's
+    # own work: three bf16 products over DP, plus the exact f32 re-scoring of
+    # this run's candidates and of its cold and overflowed (query, chunk) pairs
+    dp = -(-d // 16) * 16
     nbytes = n * d * 4 + b * d * 4 + b * K * 8
-    bound_ops, bound_bytes = ops / PEAK_F32 * 1e3, nbytes / HBM_BYTES_S * 1e3
-    shape = f"B={b} N={n} D={d} k={K} chunk=2048"
+    bound_bytes = nbytes / HBM_BYTES_S * 1e3
+    bound_f32 = 2.0 * b * n * d / PEAK_F32 * 1e3
+    rescored = st["candidates"] + (st["cold"] + st["overflowed"]) * 2048
+    bound_mma = 6.0 * b * n * dp / PEAK_BF16 * 1e3 + 2.0 * d * rescored / PEAK_F32 * 1e3
+    steps = sum(-(-min(2048, n - lo) // 128) for lo in range(0, n, 2048))
+    tile_bytes = -(-b // 16) * steps * (2 * 128 * (dp + 8) * 2 + 2 * 132 * 4)
+    lists = max(1, st["lists"])
+    ctx.report("scan E filter (one call)",
+               f"{st}: candidates per (query, chunk) mean {st['candidates'] / lists:.4f}, "
+               f"max {st['most_in_a_list']}; {st['overflowed']} lists overflowed, "
+               f"{st['cold']} cold (query, chunk) pairs re-scored in full")
+    ctx.report("scan E corpus bytes the query tiles read (bf16 planes + norms, from the shapes)",
+               f"{tile_bytes / 1e9:.2f} GB ({-(-b // 16)} tiles of 16 queries)")
     for name, t in ms.items():
         ctx.report(f"scan kernel ms ({name}, {shape})", t)
-        ctx.report(f"scan kernel achieved TFLOP/s ({name}, f32)", ops / (t * 1e-3) / 1e12)
     ctx.report("scan plain version ms (one batch)", plain_ms)
     ctx.report("scan yardstick ms (product + selection: f32 torch.matmul per 131,072 rows "
                "+ torch.topk)", library_ms)
-    ctx.report("scan bound ms (2*B*N*D f32 ops / 67 TFLOP/s vs bytes / 3.35 TB/s)",
-               f"{max(bound_ops, bound_bytes)} (ops {bound_ops}, bytes {bound_bytes})")
+    ctx.report("scan bound ms, the f32 function (2*B*N*D f32 ops / 67 TFLOP/s vs bytes / "
+               "3.35 TB/s; F and the CUDA-core E)",
+               f"{max(bound_f32, bound_bytes)} (ops {bound_f32}, bytes {bound_bytes})")
+    ctx.report("scan bound ms, the tensor-core E (6*B*N*DP bf16 ops / 989 TFLOP/s + the "
+               "exact re-scoring's f32 ops / 67 TFLOP/s vs bytes)",
+               f"{max(bound_mma, bound_bytes)} (ops {bound_mma}, bytes {bound_bytes})")
     del xd
-    common = dict(plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bound_ops, bound_bytes),
-                  bound_by="operations" if bound_ops >= bound_bytes else "bytes")
-    return {name: dict(common, ms=ms[name], max_abs_err=errs[name],
-                       launches=launches["E" if name == "flat_topk_pallas" else "F"])
-            for name in ms}
+    common = dict(plain_ms=plain_ms, library_ms=library_ms)
+    return {
+        "flat_topk_pallas": dict(common, ms=ms["flat_topk_pallas"], launches=launches["E_mma"],
+                                 max_abs_err=errs["flat_topk_pallas"],
+                                 bound_ms=max(bound_mma, bound_bytes),
+                                 bound_by="operations" if bound_mma >= bound_bytes else "bytes"),
+        "flat_topk_pallas2": dict(common, ms=ms["flat_topk_pallas2"], launches=launches["F"],
+                                  max_abs_err=errs["flat_topk_pallas2"],
+                                  bound_ms=max(bound_f32, bound_bytes),
+                                  bound_by="operations" if bound_f32 >= bound_bytes else "bytes"),
+    }
 
 # ---------------------------------------------------------------------------
 # The fused hop scorer: kernel G (fused_hop_scores)
@@ -1871,7 +2015,7 @@ def main() -> int:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "zvdb_tpu_torch/csrc/scan_topk.cu",
+        "source": source,
         "replaces": replaces,
         "launches": te[name]["launches"],
         "max_abs_err": te[name]["max_abs_err"],
@@ -1880,8 +2024,11 @@ def main() -> int:
         "bound_ms": te[name]["bound_ms"],
         "bound_by": te[name]["bound_by"],
         "library_ms": te[name]["library_ms"],
-    } for name, replaces in (("flat_topk_pallas", "examples/pallas_scan_v1.py:95"),
-                             ("flat_topk_pallas2", "examples/pallas_scan_v2.py:85"))] + [{
+    } for name, source, replaces in (
+        ("flat_topk_pallas", "zvdb_tpu_torch/csrc/scan_topk_mma.cu",
+         "examples/pallas_scan_v1.py:95"),
+        ("flat_topk_pallas2", "zvdb_tpu_torch/csrc/scan_topk.cu",
+         "examples/pallas_scan_v2.py:85"))] + [{
         "name": "fused_hop_scores",
         "route": "cuda",
         "source": "zvdb_tpu_torch/csrc/hop_scores.cu",

@@ -125,6 +125,25 @@ def test_allowed_remove_compact_same_ids_as_jax(data):
     assert t.capacity == j.capacity and t.state.n == int(j.state.n)
 
 
+def test_add_on_a_jax_built_index_matches_jax(data):
+    """Rows added to a JAX-built index and to its port: the same codes,
+    refine and r_scales bit for bit, norms within an ulp (decoded norms sum
+    the subspaces in another order), and the same ids through the kernel
+    path. Mirrors the IVF-PQ append check in test_torch_ivfpq.py."""
+    x, q = data
+    j = ZJ.PQFlatIndex(ZJ.PQConfig(**BASE, refine="int16", scan="pallas"))
+    j.build(x[:4000])
+    t = _port_of(j)
+    extra = x[4000:4600] + 0.01
+    j.add(extra)
+    t.add(extra)
+    assert len(t) == len(j) == 4600 and t.capacity == j.capacity
+    for f in ("codes", "refine", "r_scales"):
+        np.testing.assert_array_equal(getattr(t.state, f).numpy(), np.asarray(getattr(j.state, f)))
+    np.testing.assert_allclose(t.state.norms.numpy(), np.asarray(j.state.norms), rtol=1e-6)
+    _same(j.search(q, 10), t.search(q, 10), q)
+
+
 @pytest.mark.parametrize("refine", ["int16", "bfloat16"])
 def test_save_files_load_in_both_packages(data, refine, tmp_path):
     x, q = data

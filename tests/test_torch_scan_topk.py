@@ -7,7 +7,9 @@ example kernels in interpret mode (f32 dots), loaded by path as
 tests/test_pallas_scan.py loads them. Ids must be equal id for id, in slot
 order. Scores within rtol 1e-5, atol 1e-4: the f32 dot sums in another order.
 
-The `gpu`-marked tests need the card and skip without one:
+On the CPU `filter_margin` is also held against an emulated bf16x3 split.
+The `gpu`-marked tests need the card and skip without one; they hold the
+tensor-core E, F and the CUDA-core E equal bit for bit:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_scan_topk.py
 """
 import importlib.util
@@ -110,6 +112,87 @@ def test_q_tile_changes_nothing_and_chunk_only_the_order():
     np.testing.assert_array_equal(torch.sort(i1, 1).values.numpy(), gt)
 
 
+def _fma_dot(q, x):
+    """acc = fmaf(q_d, x_d, acc) over d in order, for every (query, row):
+    the exact product in f64, one rounding to f32 per step."""
+    q64, x64 = q.double(), x.double()
+    acc = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.float32)
+    for d in range(q.shape[1]):
+        acc = (q64[:, None, d] * x64[None, :, d] + acc.double()).float()
+    return acc
+
+
+def _split(v):
+    hi = v.to(torch.bfloat16)
+    return hi.float(), (v - hi.float()).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("d", [16, 33, 128, 1024])
+def test_filter_margin_bounds_the_split(d):
+    # the tensor-core filter's score (three bf16 products summed in f32)
+    # against the exact score (the f32 fmaf chain) and an f64 dot: within
+    # half the margin (the margin keeps >= 2x headroom on its proven bound)
+    rng = np.random.default_rng(d)
+    nq, nx = 12, 160
+    q = rng.standard_normal((nq, d))
+    x = rng.standard_normal((nx, d))
+    q *= 10.0 ** rng.uniform(-3, 4, (nq, 1))             # norms from ~1e-3 to ~1e4 and beyond
+    x *= 10.0 ** rng.uniform(-3, 4, (nx, 1))
+    x[:8] = x[8:16] + 1e-6 * rng.standard_normal((8, d))  # near-duplicates, mixed signs
+    x[16:24] = rng.standard_normal((8, d)) * 2e-38        # at bf16's underflow
+    q[0] = rng.standard_normal(d) * 3e-38
+    q, x = torch.from_numpy(q.astype(np.float32)), torch.from_numpy(x.astype(np.float32))
+    qh, ql = _split(q)
+    xh, xl = _split(x)
+    approx = qh @ xh.T + qh @ xl.T + ql @ xh.T
+    exact = _fma_dot(q, x)
+    nrm = _fma_dot(x, x).diagonal()
+    dot64 = q.double() @ x.double().T
+    qn = torch.linalg.vector_norm(q.double(), dim=1)[:, None]
+    xn = torch.linalg.vector_norm(x.double(), dim=1)[None, :]
+    half = ST.filter_margin(qn, xn, d) / 2
+    s_approx = nrm[None, :] - 2.0 * approx
+    s_exact = nrm[None, :] - 2.0 * exact
+    assert bool(((s_approx.double() - s_exact.double()).abs() <= half).all())
+    assert bool(((s_approx.double() - (nrm.double()[None, :] - 2.0 * dot64)).abs() <= half).all())
+    assert bool(((approx.double() - exact.double()).abs() <= half).all())
+    assert bool(((approx.double() - dot64).abs() <= half).all())
+
+
+def test_filter_margin_formula():
+    u = 2.0 ** -24
+    assert ST.filter_margin(1.0, 1.0, 128) == pytest.approx(
+        u * (4096 + 18 * 128 + 5) + 2.0 ** -100 * 128 * 3)
+    # DP is D rounded up to 16
+    assert ST.filter_margin(2.0, 3.0, 33) == ST.filter_margin(2.0, 3.0, 48)
+
+
+def test_cpu_tensors_count_nothing():
+    q, x = (torch.from_numpy(a) for a in _inputs(300, 8, 5, seed=1))
+    before = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
+              ST.flat_topk_pallas2.launches)
+    ST.flat_topk_pallas(q, x, 4, chunk=64)
+    ST.flat_topk_pallas2(q, x, 4, chunk=64)
+    assert (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
+            ST.flat_topk_pallas2.launches) == before
+
+
+def test_cuda_tensor_picks_the_mma_entry_point(monkeypatch):
+    # a device other than the CPU takes the tensor-core entry point, counted
+    # by both counters (the checks and the launch itself stubbed out)
+    q, x = torch.empty((3, 8), device="meta"), torch.empty((50, 8), device="meta")
+    monkeypatch.setattr(ST, "_launch", lambda name, q, v, k, chunk: (q, v, None, None, 3, 50, 8))
+    monkeypatch.setattr(ST, "build_v1_mma", lambda: "tensor cores")
+    monkeypatch.setattr(ST, "build_v1", lambda: "cuda cores")
+    seen = []
+    monkeypatch.setattr(ST, "launch", lambda kernel, *a, **kw: seen.append(kernel) or ("s", "i"))
+    before = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma)
+    assert ST.flat_topk_pallas(q, x, 5) == ("s", "i")
+    assert seen == ["tensor cores"]
+    assert (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma) == \
+        (before[0] + 1, before[1] + 1)
+
+
 def test_argument_checks_and_cpu_path():
     q, x = (torch.from_numpy(a) for a in _inputs(50, 4, 3, seed=0))
     with pytest.raises(ValueError):
@@ -149,28 +232,74 @@ def _tie_aware(q, x, metric, ks, ki, ps, pi):
         assert float((sk - sp).abs().max()) <= tol
 
 
+def _three_ways(q, x, k, metric, chunk):
+    """The tensor-core E, F and the CUDA-core E (uncounted): equal bit for bit."""
+    es, ei = ST.flat_topk_pallas(q, x, k, metric, chunk=chunk)
+    fs, fi = ST.flat_topk_pallas2(q, x, k, metric, chunk=chunk)
+    os_, oi = ST.launch(ST.build_v1(), q, x, k, metric, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(ei, fi) and torch.equal(es, fs)
+    assert torch.equal(ei, oi) and torch.equal(es, os_)
+    return es, ei
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,b,k,metric,chunk", [
     (5000, 128, 37, 10, "l2", 2048), (5003, 40, 70, 100, "dot", 256),
-    (3000, 33, 1, 1, "l2", 256), (5, 16, 9, 10, "l2", 256)])
+    (3000, 33, 1, 1, "l2", 256), (5, 16, 9, 10, "l2", 256),
+    (9001, 64, 17, 256, "l2", 4096), (4097, 1024, 20, 10, "dot", 2048),
+    (777, 20, 33, 100, "l2", 4096), (6000, 96, 300, 10, "dot", 256),
+    (3000, 1024, 5, 256, "l2", 4096)])   # the tightest plan: two stages, D chunks of 64
 def test_kernels_match_plain_on_gpu(cuda_device, n, d, b, k, metric, chunk):
+    # E on the tensor cores == F == the CUDA-core E bit for bit; tie-aware
+    # against the plain version (other summation order)
     q, x = (torch.from_numpy(a).to(cuda_device) for a in _inputs(n, d, b, seed=n + k))
     ps, pi = ST._flat_topk_plain(q, x, k, metric, chunk=chunk)
-    before = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas2.launches)
-    es, ei = ST.flat_topk_pallas(q, x, k, metric, chunk=chunk)
-    fs, fi = ST.flat_topk_pallas2(q, x, k, metric, chunk=chunk)
-    torch.cuda.synchronize()
-    assert (ST.flat_topk_pallas.launches, ST.flat_topk_pallas2.launches) == \
-        (before[0] + 1, before[1] + 1)
-    assert torch.equal(ei, fi) and torch.equal(es, fs)
+    before = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
+              ST.flat_topk_pallas2.launches)
+    es, ei = _three_ways(q, x, k, metric, chunk)
+    assert (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
+            ST.flat_topk_pallas2.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
     _tie_aware(q, x, metric, es, ei, ps, pi)
 
 
 @pytest.mark.gpu
-def test_kernel_ties_on_gpu(cuda_device):
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_kernel_ties_on_gpu(cuda_device, metric):
     q, x = (torch.from_numpy(a).to(cuda_device) for a in _inputs(1000, 16, 32, seed=11, dup=40))
-    _, pi = ST._flat_topk_plain(q, x, 10, chunk=256)
-    for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2):
-        _, ki = fn(q, x, 10, chunk=256)
-        assert torch.equal(ki[0], pi[0])
+    _, pi = ST._flat_topk_plain(q, x, 10, metric, chunk=256)
+    _, ki = _three_ways(q, x, 10, metric, 256)
+    assert torch.equal(ki[0], pi[0])
+    if metric == "l2":
         assert ki[0].tolist() == [0, 308, 307, 306, 305, 304, 303, 302, 301, 300]
+
+
+def _overflow_inputs(seed):
+    """Query 0's nearest row repeated 600 times in a later chunk, and 100
+    rows 1 ulp from it in one coordinate: at k=100 its list overflows."""
+    q, x = _inputs(20_000, 64, 24, seed=seed)
+    near = int(np.argmin(((x - q[0]) ** 2).sum(1)))
+    x[5000:5600] = x[near]
+    x[5600:5700] = x[near]
+    x[5600:5700, 0] = np.nextafter(x[near, 0], np.float32(np.inf))
+    return q, x
+
+
+@pytest.mark.gpu
+def test_mma_route_overflow_on_gpu(cuda_device):
+    q, x = (torch.from_numpy(a).to(cuda_device) for a in _overflow_inputs(seed=4))
+    _three_ways(q, x, 100, "l2", 2048)
+    st = torch.zeros(5, dtype=torch.int64, device=cuda_device)
+    ST.launch(ST.build_v1_mma(), q, x, 100, "l2", 2048, stats=st)
+    assert dict(zip(ST._STATS, st.tolist()))["overflowed"] >= 1
+
+
+@pytest.mark.gpu
+def test_mma_route_misaligned_rows_on_gpu(cuda_device):
+    q, x = (torch.from_numpy(a).to(cuda_device) for a in _inputs(3000, 33, 19, seed=2))
+    buf = torch.empty(x.numel() + 1, device=cuda_device)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 4
+    es, ei = _three_ways(q, xm, 10, "l2", 256)
+    assert torch.equal(ei, ST.flat_topk_pallas(q, x, 10, chunk=256)[1])

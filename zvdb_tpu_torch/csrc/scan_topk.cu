@@ -429,12 +429,14 @@ extern "C" int zvdb_flat_topk_v1(const void* q, const void* x, void* out_s, void
   return (int)cudaGetLastError();
 }
 
-// Kernel F on `stream` (both passes); returns a CUDA error code (0 on
-// success). As zvdb_flat_topk_v1, plus the scratch pair_s [B, nc, k] f32 and
-// pair_i [B, nc, k] int32 with nc = ceil(N / chunk) <= 65535.
-extern "C" int zvdb_flat_topk_v2(const void* q, const void* x, void* pair_s, void* pair_i,
-                                 void* out_s, void* out_i, int B, int N, int D, int k,
-                                 int chunk, int l2, void* stream) {
+// Kernel F's passes on `stream`: passes = 1 the pairs pass alone, 2 the fold
+// pass alone (over pair_s / pair_i as pass 1 left them), 3 both. Returns a
+// CUDA error code (0 on success). zvdb_flat_topk_v2 runs both; the split is
+// for timing them apart.
+extern "C" int zvdb_flat_topk_v2_passes(const void* q, const void* x, void* pair_s,
+                                        void* pair_i, void* out_s, void* out_i, int B, int N,
+                                        int D, int k, int chunk, int l2, void* stream,
+                                        int passes) {
   if (bad_args(B, N, D, k, chunk)) return (int)cudaErrorInvalidValue;
   const int nc = (int)(((long long)N + chunk - 1) / chunk);
   if (nc > 65535) return (int)cudaErrorInvalidValue;
@@ -446,7 +448,7 @@ extern "C" int zvdb_flat_topk_v2(const void* q, const void* x, void* pair_s, voi
   int* pi = static_cast<int*>(pair_i);
   const int tiles = (B + QT - 1) / QT;
   cudaError_t rc;
-  if (nc > 0) {
+  if (nc > 0 && (passes & 1)) {
     const size_t smem = scan_smem(chunk, D, 0);
     const dim3 grid(tiles, nc);
     if (vec_ok(x, D)) {
@@ -460,8 +462,19 @@ extern "C" int zvdb_flat_topk_v2(const void* q, const void* x, void* pair_s, voi
     }
     if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
   }
+  if (!(passes & 2)) return 0;
   const size_t smem2 = sizeof(float) * 2 * (size_t)QT * k;
   topk_v2_fold_kernel<<<tiles, THREADS, smem2, s>>>(ps, pi, static_cast<float*>(out_s),
                                                     static_cast<int*>(out_i), B, k, nc);
   return (int)cudaGetLastError();
+}
+
+// Kernel F on `stream` (both passes); returns a CUDA error code (0 on
+// success). As zvdb_flat_topk_v1, plus the scratch pair_s [B, nc, k] f32 and
+// pair_i [B, nc, k] int32 with nc = ceil(N / chunk) <= 65535.
+extern "C" int zvdb_flat_topk_v2(const void* q, const void* x, void* pair_s, void* pair_i,
+                                 void* out_s, void* out_i, int B, int N, int D, int k,
+                                 int chunk, int l2, void* stream) {
+  return zvdb_flat_topk_v2_passes(q, x, pair_s, pair_i, out_s, out_i, B, N, D, k, chunk, l2,
+                                  stream, 3);
 }

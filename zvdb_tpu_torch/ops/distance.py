@@ -100,13 +100,16 @@ def quantize_corpus(x: torch.Tensor, metric: str, bits: int = 8):
     bits=8 -> int8 codes (levels +-127); bits=16 -> int16 (+-32767).
     Returns (codes [..., D], scales f32 [...], sq_norms f32 [...]).
     Reconstruction: x_i ~= scales_i * codes_i; norms are exact (from f32).
+    The scales multiply by f32(1 / lim): every JAX caller is jitted, and XLA
+    compiles its `/ lim` so (a division would differ by an ulp on ~1% of
+    rows).
     """
     lim, dtype = {8: (127.0, torch.int8), 16: (32767.0, torch.int16)}[bits]
     xf = x.float()
     if metric == "cosine":
         xf = normalize(xf)
     amax = xf.abs().amax(dim=-1)
-    scales = torch.clamp(amax, min=1e-12) / lim
+    scales = torch.clamp(amax, min=1e-12) * (1.0 / lim)
     codes = torch.clamp(torch.round(xf / scales[..., None]), -lim, lim).to(dtype)
     norms = sq_norms(xf) if metric == "l2" else xf.new_zeros(xf.shape[:-1])
     return codes, scales, norms

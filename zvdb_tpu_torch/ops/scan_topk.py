@@ -19,12 +19,31 @@ in the kernels, and f32 matmuls in the plain version, which on the card
 assume TF32 is off as everywhere in the package (ops/distance.py). This is
 an exact oracle.
 
-On a CUDA tensor each entry point launches its hand-written kernel in
-csrc/scan_topk.cu (built with nvcc at first use into build/kernels/ and bound
-with ctypes): E walks every chunk inside one block per query tile, F scores
-all (query tile, chunk) pairs in parallel into a scratch of each chunk's k
+On a CUDA tensor each entry point launches a hand-written kernel (built with
+nvcc at first use into build/kernels/ and bound with ctypes). E runs
+csrc/scan_topk_mma.cu: a pre-pass splits the corpus into bf16 hi/lo planes
+and its exact f32 norms, then one block per 16-query tile walks every chunk,
+filters each chunk's columns on the tensor cores (bf16x3 `mma.sync`) against
+each query's running k-th score plus a proven margin (`filter_margin`), and
+re-scores the survivors with the exact f32 FMA chain, so E's output equals
+the CUDA-core kernel's and F's bit for bit. Every legal shape takes that
+route. The CUDA-core E (`zvdb_flat_topk_v1`, csrc/scan_topk.cu) stays
+reachable through `launch`, uncounted. F (csrc/scan_topk.cu) scores all
+(query tile, chunk) pairs in parallel into a scratch of each chunk's k
 smallest pairs and replays them per query. On a CPU tensor both run
 `_flat_topk_plain`, the same function in plain PyTorch.
+
+The filter's margin. With u = 2^-24, DP = D rounded up to 16 and
+P = sum_d |q_d x_d| <= ||q|| ||x||, the filter's score s~ (three bf16
+products summed by the tensor cores) and the exact score s (the FMA chain)
+differ by at most u((1557 + 8.15 DP) P + 2 nrm) + 2^-100 DP (1 + ||q|| +
+||x||): the split drops <= 776 u P, the tensor cores' accumulation (taken
+as <= 16 u of its operands' magnitude per mma, 3 DP / 16 mmas) <= 3.06 DP
+u P, the chain itself <= 1.0001 D u P, both scores round nrm - 2a once, and
+the last term covers subnormals. `filter_margin` doubles every term (the
+derivation in full heads csrc/scan_topk_mma.cu). A column whose s~ exceeds
+T + margin, T the query's buffer worst at the start of the chunk, has an
+exact score above T and can never be taken, so the filter is exact.
 """
 from __future__ import annotations
 
@@ -38,9 +57,22 @@ MAX_CHUNK = 4096   # the kernels keep a chunk's scores in shared memory
 MAX_K = 256        # ... and each query's k-slot buffer
 MAX_DIM = 1024     # ... and the query tile
 
-build_info: dict = {}   # path, seconds, ptxas report of this process's build
+build_info: dict = {}       # scan_topk.cu: path, seconds, ptxas report of this process's build
+build_info_mma: dict = {}   # scan_topk_mma.cu: the same
 
 _INF = float("inf")
+_STATS = ("candidates", "most_in_a_list", "overflowed", "cold", "lists")
+
+
+def filter_margin(q_norm, x_norm, d: int):
+    """The tensor-core filter's margin for a query of norm `q_norm` against
+    rows of norm `x_norm` at depth `d` (floats or tensors): twice every term
+    of the proven bound on |filter score - exact score| (module docstring).
+    The kernel evaluates it with `x_norm ** 2` as the row's exact f32 norm."""
+    dp = -(-d // 16) * 16
+    u = 2.0 ** -24
+    return (u * ((4096 + 18 * dp) * q_norm * x_norm + 5 * x_norm * x_norm)
+            + 2.0 ** -100 * dp * (1 + q_norm + x_norm))
 
 
 def build_v1():
@@ -53,11 +85,39 @@ def build_v1():
     return fn
 
 
+def build_v1_mma():
+    """Compile csrc/scan_topk_mma.cu, load it and return kernel E's
+    tensor-core entry point, with its scratch size function (B, N, D, k,
+    chunk -> bytes, -1 when refused) as `.scratch_bytes` and its pre-pass
+    alone as `.prep` (for `launch_prep`)."""
+    fn, info = cuda_build.load(
+        "scan_topk_mma.cu", "zvdb_flat_topk_v1_mma",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    size, _ = cuda_build.load("scan_topk_mma.cu", "zvdb_flat_topk_v1_mma_scratch",
+                              [ctypes.c_int] * 5)
+    size.restype = ctypes.c_longlong
+    fn.scratch_bytes = size
+    fn.prep, _ = cuda_build.load("scan_topk_mma.cu", "zvdb_flat_topk_v1_mma_prep",
+                                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    build_info_mma.update(info)
+    return fn
+
+
 def build_v2():
     """Kernel F's entry point, from the same library as kernel E."""
     fn, info = cuda_build.load(
         "scan_topk.cu", "zvdb_flat_topk_v2",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    build_info.update(info)
+    return fn
+
+
+def build_v2_passes():
+    """Kernel F's pass-selecting entry point, from the same library as F:
+    for timing its two passes apart (`launch_f_passes`)."""
+    fn, info = cuda_build.load(
+        "scan_topk.cu", "zvdb_flat_topk_v2_passes",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int])
     build_info.update(info)
     return fn
 
@@ -140,25 +200,57 @@ def _launch(name: str, q, vectors, k: int, chunk: int):
 def flat_topk_pallas(q: torch.Tensor, vectors: torch.Tensor, k: int, metric: str = "l2",
                      q_tile: int = 256, chunk: int = 2048):
     """Exact top-k over the full corpus (kernel E, one pass). Returns
-    (scores [B, k] f32 surrogate, ids [B, k] int32) in slot order."""
+    (scores [B, k] f32 surrogate, ids [B, k] int32) in slot order.
+
+    On a CUDA tensor every legal shape launches the tensor-core kernel
+    (csrc/scan_topk_mma.cu), counted by `launches` and `launches_mma`. A CPU
+    tensor takes the plain version and counts nothing."""
     _check_args(k, q_tile, chunk)
     if q.device.type == "cpu":
         return _flat_topk_plain(q, vectors, k, metric, q_tile, chunk)
     q, x, out_s, out_i, b, n, d = _launch("flat_topk_pallas", q, vectors, k, chunk)
     if b == 0:
         return out_s, out_i
-    kernel = build_v1()
+    out = launch(build_v1_mma(), q, x, k, metric, chunk)
+    flat_topk_pallas.launches += 1
+    flat_topk_pallas.launches_mma += 1
+    return out
+
+
+flat_topk_pallas.launches = 0       # every launch of kernel E
+flat_topk_pallas.launches_mma = 0   # the launches on the tensor cores (all of them)
+
+
+def launch(kernel, q, vectors, k: int, metric: str = "l2", chunk: int = 2048, stats=None):
+    """Run one of kernel E's entry points, `build_v1_mma()` (tensor cores) or
+    `build_v1()` (CUDA cores), on CUDA tensors and return (scores, ids);
+    counts nothing. `stats`, for the tensor-core entry point only, is None or
+    a zeroed int64 CUDA tensor of 5 that the kernel adds to: candidates
+    pushed, the most in one list, lists that overflowed, cold (query, chunk)
+    pairs re-scored in full, and lists replayed. Raises RuntimeError if the
+    launch fails."""
+    q, x, out_s, out_i, b, n, d = _launch("flat_topk_pallas", q, vectors, k, chunk)
+    if b == 0:
+        return out_s, out_i
+    mma = kernel.__name__.endswith("_mma")
+    if stats is not None and (not mma or stats.dtype != torch.int64 or stats.numel() != 5
+                              or stats.device != q.device):
+        raise ValueError("launch: stats is a 5-element int64 tensor on q's device, for the "
+                         "tensor-core entry point")
+    l2 = int(metric == "l2")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernel(q.data_ptr(), x.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, n, d, k,
-                    chunk, int(metric == "l2"), stream)
+        if mma:
+            scratch = _mma_scratch(kernel, b, n, d, k, chunk, q.device)
+            rc = kernel(q.data_ptr(), x.data_ptr(), scratch.data_ptr(), out_s.data_ptr(),
+                        out_i.data_ptr(), 0 if stats is None else stats.data_ptr(), b, n, d, k,
+                        chunk, l2, stream)
+        else:
+            rc = kernel(q.data_ptr(), x.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, n, d,
+                        k, chunk, l2, stream)
     if rc != 0:
         raise RuntimeError(f"flat_topk_pallas: kernel launch failed with CUDA error {rc}")
-    flat_topk_pallas.launches += 1
     return out_s, out_i
-
-
-flat_topk_pallas.launches = 0
 
 
 def flat_topk_pallas2(q: torch.Tensor, vectors: torch.Tensor, k: int, metric: str = "l2",
@@ -188,3 +280,48 @@ def flat_topk_pallas2(q: torch.Tensor, vectors: torch.Tensor, k: int, metric: st
 
 
 flat_topk_pallas2.launches = 0
+
+
+def _mma_scratch(kernel, b: int, n: int, d: int, k: int, chunk: int, device):
+    nbytes = kernel.scratch_bytes(b, n, d, k, chunk)
+    if nbytes < 0:
+        raise ValueError(f"flat_topk_pallas: the tensor-core kernel refuses B={b}, N={n}, D={d}, "
+                         f"k={k}, chunk={chunk}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def launch_prep(q, vectors, k: int, chunk: int = 2048):
+    """Run the tensor-core E's pre-pass alone (the bf16 planes and norms of
+    `vectors`) on CUDA tensors, uncounted, to time its share of E."""
+    q, x, _, _, b, n, d = _launch("flat_topk_pallas", q, vectors, k, chunk)
+    kernel = build_v1_mma()
+    scratch = _mma_scratch(kernel, b, n, d, k, chunk, q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = kernel.prep(x.data_ptr(), scratch.data_ptr(), b, n, d, k, chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"flat_topk_pallas: pre-pass launch failed with CUDA error {rc}")
+
+
+def launch_f_passes(q, vectors, k: int, metric: str = "l2", chunk: int = 2048,
+                    passes: int = 3, pairs=None):
+    """Run kernel F's passes on CUDA tensors, uncounted: `passes` 1 the pairs
+    pass, 2 the fold pass, 3 both. `pairs` = (pair_s, pair_i) from an earlier
+    call is reused, so a fold alone replays what a pairs pass wrote. Returns
+    (scores, ids, pairs). Raises RuntimeError if the launch fails."""
+    q, x, out_s, out_i, b, n, d = _launch("flat_topk_pallas2", q, vectors, k, chunk)
+    nc = -(-n // chunk)
+    if pairs is None:
+        pairs = (torch.empty((b, nc, k), dtype=torch.float32, device=q.device),
+                 torch.empty((b, nc, k), dtype=torch.int32, device=q.device))
+    if b == 0:
+        return out_s, out_i, pairs
+    kernel = build_v2_passes()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = kernel(q.data_ptr(), x.data_ptr(), pairs[0].data_ptr(), pairs[1].data_ptr(),
+                    out_s.data_ptr(), out_i.data_ptr(), b, n, d, k, chunk, int(metric == "l2"),
+                    stream, passes)
+    if rc != 0:
+        raise RuntimeError(f"flat_topk_pallas2: kernel launch failed with CUDA error {rc}")
+    return out_s, out_i, pairs
