@@ -11,11 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                   "default"/"high" on the tensor cores), flat_scan.cu (A's
                   and D's "highest" on the CUDA cores), pq_scan.cu (B's
                   CUDA-core route and C), pq_scan_mma.cu (B int8 on the
-                  tensor cores), scan_topk_mma.cu (E, its tensor-core
-                  filter and exact re-scoring), scan_topk.cu (F and the
-                  CUDA-core E), hop_scores.cu (G) and block_bins.cu (D on
-                  the tensor cores), each with its ptxas registers and
-                  spills;
+                  tensor cores), scan_topk_mma.cu (E and F, their
+                  tensor-core filters and exact re-scoring), scan_topk.cu
+                  (the CUDA-core E and F), hop_scores.cu (G) and
+                  block_bins.cu (D on the tensor cores), each with its ptxas
+                  registers and spills;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
                   over a grid of shapes, every precision and metric, f32
                   and bf16 storage, tie-aware ("default" and "high" on the
@@ -106,30 +106,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                   config's precision), and a torch.profiler breakdown of a
                   search batch;
  17. scan compare - kernels E and F (the exact flat top-k scans
-                  flat_topk_pallas on the tensor cores, csrc/scan_topk_mma.cu,
-                  and flat_topk_pallas2, csrc/scan_topk.cu) against their
-                  plain version over {l2, dot} x chunk {256, 2048} x k {1,
-                  10, 100}, a ragged N, B=1, N < k, N < chunk, k=256 at
-                  chunk=4096, D=1024, D=33 on a misaligned x, B=17, an
-                  overflowing candidate list (600 duplicates of query 0's
-                  nearest row and 100 rows 1 ulp away, k=100), rows of norm
-                  ~1e3 around a query near the origin, and the main path's
-                  width, tie-aware; on every case E == F == the CUDA-core E
-                  (called uncounted) with torch.equal; the 40-equal-rows
-                  tie probe id for id;
+                  flat_topk_pallas and flat_topk_pallas2, both on the tensor
+                  cores, csrc/scan_topk_mma.cu) against their plain version
+                  over {l2, dot} x chunk {256, 2048} x k {1, 10, 100}, a
+                  ragged N, B=1, N < k, N < chunk, k=256 at chunk=4096,
+                  D=1024, D=33 on a misaligned x, B=17, an overflowing
+                  candidate list (600 duplicates of query 0's nearest row and
+                  100 rows 1 ulp away, k=100), rows of norm ~1e3 around a
+                  query near the origin, and the main path's width,
+                  tie-aware; on every case E == F == the CUDA-core E == the
+                  CUDA-core F (called uncounted) with torch.equal, and both
+                  filters' counts on the overflow (where a list of each must
+                  overflow), far and k=256 cases; the 40-equal-rows tie probe
+                  id for id;
  18. scan main  - the exact top-10 of every query over the 1M x 128d corpus
                   through E, then F, in batches of 2048 at their defaults:
-                  launches == launches_mma == batches for E, launches ==
-                  batches for F, E == F bit for bit, recall@10 >= 0.999
-                  against phase 4's exact search (every other id a
-                  near-tie), each kernel on the first batch against its
-                  plain version and E against the CUDA-core E; ms per
-                  batch of E (100 calls) and the CUDA-core E (100), F (20)
-                  and its two passes apart, the pre-pass's share (its
-                  time alone, 100 calls), the filter's counts (candidates per
-                  query and chunk, overflows, cold chunks), the corpus
-                  bytes the query tiles read, the plain version, the
-                  product + selection yardstick, both bounds;
+                  launches == launches_mma == batches for E and for F, E ==
+                  F bit for bit, recall@10 >= 0.999 against phase 4's exact
+                  search (every other id a near-tie), each kernel on the
+                  first batch against its plain version and its CUDA-core
+                  form bit for bit; ms per batch of E (100 calls) and the
+                  CUDA-core E (100), F (20) with its pre-pass, pairs pass
+                  (filter and select passes) and fold apart, the CUDA-core F
+                  (10) with its two passes, E and F at B=128 (20 each), the
+                  pre-pass's share, both filters' counts, the corpus bytes
+                  the query tiles read, the plain version, the product +
+                  selection yardstick, the bounds (the f32 function; E's and
+                  F's own work);
  19. hop        - kernel G (fused_hop_scores, csrc/hop_scores.cu) against
                   its plain version (gather + einsum) at small shapes with
                   duplicated ids, then over the corpus at the experiment's
@@ -239,8 +242,8 @@ def phase_build(ctx: Ctx):
             fut.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
     BS.build()                            # kernel D "highest": flat_scan.cu's second entry point
-    ST.build_v2()                         # kernel F: the second entry point of scan_topk.cu
-    ST.build_v2_passes()                  # ... and F's passes apart, for their times
+    ST.build_v2_mma()                     # kernel F: the second entry point of scan_topk_mma.cu
+    ST.build_v2_passes()                  # the CUDA-core F, scan_topk.cu's, for comparison
     ctx.report("build seconds (flat_scan_mma.cu, flat_scan.cu, pq_scan.cu, pq_scan_mma.cu, "
                "scan_topk.cu, scan_topk_mma.cu, hop_scores.cu and block_bins.cu in parallel; "
                "seven kernels, twelve entry points)", round(time.perf_counter() - t0, 2))
@@ -1347,7 +1350,7 @@ def kernel_counts():
                 B_mma=PS.pq_scan_bins.launches_mma, C=PS.pq_grouped_scan_bins.launches,
                 D=BS.block_bins.launches, D_mma=BS.block_bins.launches_mma,
                 E=ST.flat_topk_pallas.launches, E_mma=ST.flat_topk_pallas.launches_mma,
-                F=ST.flat_topk_pallas2.launches)
+                F=ST.flat_topk_pallas2.launches, F_mma=ST.flat_topk_pallas2.launches_mma)
 
 
 def reset_kernel_counts():
@@ -1361,7 +1364,7 @@ def reset_kernel_counts():
     PS.pq_grouped_scan_bins.launches = BS.block_bins.launches = 0
     BS.block_bins.launches_mma = 0
     ST.flat_topk_pallas.launches = ST.flat_topk_pallas.launches_mma = 0
-    ST.flat_topk_pallas2.launches = 0
+    ST.flat_topk_pallas2.launches = ST.flat_topk_pallas2.launches_mma = 0
 
 
 def phase_cagra_main(ctx: Ctx, x1, q1, gt):
@@ -1609,12 +1612,20 @@ def _scan_stats(ST, q, x, k, metric, chunk):
     return dict(zip(ST._STATS, st.tolist()))
 
 
+def _scan_stats_f(ST, q, x, k, metric, chunk):
+    """The tensor-core F's filter counters for one uncounted launch."""
+    st = torch.zeros(5, dtype=torch.int64, device=q.device)
+    ST.launch_f_passes(ST.build_v2_mma(), q, x, k, metric, chunk, stats=st)
+    return dict(zip(ST._STATS_F, st.tolist()))
+
+
 def phase_compare_scan(ctx: Ctx):
     from zvdb_tpu_torch.ops import scan_topk as ST
 
     rng = np.random.default_rng(654)
     dev = ctx.device
     old_e = None if ctx.rehearse else ST.build_v1()
+    old_f = None if ctx.rehearse else ST.build_v2_passes()
     # (N, D, B, k, metric, chunk, inputs); inputs None: seeded normal rows
     cases = [(5000, 128, 37, k, metric, chunk, None)
              for metric in ("l2", "dot") for chunk in (256, 2048) for k in (1, 10, 100)]
@@ -1649,17 +1660,23 @@ def phase_compare_scan(ctx: Ctx):
         if not (torch.equal(ei, fi) and torch.equal(es, fs)):
             raise AssertionError(f"{label}: E and F differ")
         extra = ""
-        if old_e is not None:   # the CUDA-core E, uncounted: equal bit for bit
+        if old_e is not None:   # the CUDA-core E and F, uncounted: equal bit for bit
             os_, oi = ST.launch(old_e, q, x, k, metric, chunk)
+            gs, gi, _, _ = ST.launch_f_passes(old_f, q, x, k, metric, chunk)
             ctx.sync()
             if not (torch.equal(oi, ei) and torch.equal(os_, es)):
                 raise AssertionError(f"{label}: E differs from the CUDA-core E")
-            extra = " == CUDA-core E"
+            if not (torch.equal(gi, fi) and torch.equal(gs, fs)):
+                raise AssertionError(f"{label}: F differs from the CUDA-core F")
+            extra = " == CUDA-core E == CUDA-core F"
             if kind in ("overflow", "far") or k == 256:
                 st = _scan_stats(ST, q, x, k, metric, chunk)
+                stf = _scan_stats_f(ST, q, x, k, metric, chunk)
                 if kind == "overflow" and st["overflowed"] < 1:
-                    raise AssertionError(f"{label}: no candidate list overflowed ({st})")
-                extra += f", filter counts {st}"
+                    raise AssertionError(f"{label}: no candidate list of E overflowed ({st})")
+                if kind == "overflow" and stf["overflowed"] < 1:
+                    raise AssertionError(f"{label}: no list of F overflowed ({stf})")
+                extra += f", E's filter counts {st}, F's {stf}"
         err, rows = check_topk(q, x, metric, es, ei, ps, pi, label)
         print(f"  compare {label}: ok, E == F{extra}, max |kernel - plain| = {err:.3g}, "
               f"{rows} rows with other ids (near-ties)", flush=True)
@@ -1670,6 +1687,8 @@ def phase_compare_scan(ctx: Ctx):
     fns = [ST.flat_topk_pallas, ST.flat_topk_pallas2]
     if old_e is not None:
         fns.append(lambda q, x, k, metric, chunk: ST.launch(old_e, q, x, k, metric, chunk))
+        fns.append(lambda q, x, k, metric, chunk:
+                   ST.launch_f_passes(old_f, q, x, k, metric, chunk)[:2])
     for metric in ("l2", "dot"):
         q, x = _topk_inputs(rng, 1000, 16, 32, dev, dup=40)
         _, pi = ST._flat_topk_plain(q, x, 10, metric, chunk=256)
@@ -1678,8 +1697,8 @@ def phase_compare_scan(ctx: Ctx):
             if not torch.equal(ki[0], pi[0]) or (metric == "l2" and ki[0].tolist() != want):
                 raise AssertionError(f"topk tie rule broken (entry {i}, {metric}): "
                                      f"{ki[0].tolist()} vs plain {pi[0].tolist()}")
-    print(f"  compare topk tie rule (40 equal rows, l2 and dot, E, F and the CUDA-core E): ok, "
-          f"{want}", flush=True)
+    print(f"  compare topk tie rule (40 equal rows, l2 and dot, E, F and the CUDA-core E and "
+          f"F): ok, {want}", flush=True)
 
 
 def phase_scan_main(ctx: Ctx, x1, q1, gt):
@@ -1704,9 +1723,9 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
         ctx.report(f"scan main {fn.__name__} seconds for {len(qb)} batches (host clock)",
                    round(time.perf_counter() - t0, 3))
     counts = kernel_counts()
-    launches = {"E": counts["E"], "E_mma": counts["E_mma"], "F": counts["F"]}
+    launches = {name: counts[name] for name in ("E", "E_mma", "F", "F_mma")}
     ctx.report("scan main launches", f"{launches} for {len(qb)} batches")
-    if not ctx.rehearse and launches != {"E": len(qb), "E_mma": len(qb), "F": len(qb)}:
+    if not ctx.rehearse and launches != dict.fromkeys(launches, len(qb)):
         raise AssertionError(f"scan kernels launched {launches} for {len(qb)} batches")
     ei, fi = ids["flat_topk_pallas"], ids["flat_topk_pallas2"]
     if not (torch.equal(ei, fi) and torch.equal(scores["flat_topk_pallas"],
@@ -1753,30 +1772,53 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
         ms = {fn.__name__: ctx.time_ms(lambda fn=fn: fn(q0, xd, K), reps=1)
               for fn in (ST.flat_topk_pallas, ST.flat_topk_pallas2)}
         st = {"candidates": 0, "most_in_a_list": 0, "overflowed": 0, "cold": 0, "lists": 1}
+        stf = dict.fromkeys(ST._STATS_F, 0)
     else:
-        old_e = ST.build_v1()
+        old_e, old_f, new_f = ST.build_v1(), ST.build_v2_passes(), ST.build_v2_mma()
         os_, oi = ST.launch(old_e, q0, xd, K)
+        gs, gi, _, _ = ST.launch_f_passes(old_f, q0, xd, K)
         ks, ki = ST.flat_topk_pallas(q0, xd, K)
+        fs, fi = ST.flat_topk_pallas2(q0, xd, K)
         ctx.sync()
         if not (torch.equal(oi, ki) and torch.equal(os_, ks)):
             raise AssertionError("scan main first batch: E differs from the CUDA-core E")
-        print("  compare scan main first batch: E == the CUDA-core E bit for bit", flush=True)
+        if not (torch.equal(gi, fi) and torch.equal(gs, fs)):
+            raise AssertionError("scan main first batch: F differs from the CUDA-core F")
+        print("  compare scan main first batch: E == the CUDA-core E and F == the CUDA-core F "
+              "bit for bit", flush=True)
         st = _scan_stats(ST, q0, xd, K, "l2", 2048)
+        stf = _scan_stats_f(ST, q0, xd, K, "l2", 2048)
         # 100 calls each of E on both routes (fewer read host stalls), F 20
         ms = {"flat_topk_pallas": ctx.time_ms(lambda: ST.flat_topk_pallas(q0, xd, K), reps=100,
                                               warmup=2)}
         ms["cuda_core_e"] = ctx.time_ms(lambda: ST.launch(old_e, q0, xd, K), reps=100)
-        ms["flat_topk_pallas2"] = ctx.time_ms(lambda: ST.flat_topk_pallas2(q0, xd, K), reps=20)
-        # F's passes apart: the pairs pass, then the fold over what it wrote
-        _, _, pairs = ST.launch_f_passes(q0, xd, K, passes=1)
-        ms["f_pairs"] = ctx.time_ms(lambda: ST.launch_f_passes(q0, xd, K, passes=1, pairs=pairs),
-                                    reps=20)
-        ms["f_fold"] = ctx.time_ms(lambda: ST.launch_f_passes(q0, xd, K, passes=2, pairs=pairs),
-                                   reps=100)
+        ms["flat_topk_pallas2"] = ctx.time_ms(lambda: ST.flat_topk_pallas2(q0, xd, K), reps=20,
+                                              warmup=2)
+        # F's parts apart, each on what the others wrote: the pre-pass, the
+        # pairs pass (its filter and select passes), the fold
+        _, _, pairs, scratch = ST.launch_f_passes(new_f, q0, xd, K)
+        for name, part, reps in (("f_prepass", ST.PREP, 100), ("f_pairs", ST.PAIRS, 20),
+                                 ("f_filter", ST.FILTER, 20), ("f_select", ST.SELECT, 20),
+                                 ("f_fold", ST.FOLD, 100)):
+            ms[name] = ctx.time_ms(lambda part=part: ST.launch_f_passes(
+                new_f, q0, xd, K, passes=part, pairs=pairs, scratch=scratch), reps=reps)
+        ms["cuda_core_f"] = ctx.time_ms(lambda: ST.launch_f_passes(old_f, q0, xd, K), reps=10)
+        _, _, pairs_c, _ = ST.launch_f_passes(old_f, q0, xd, K, passes=ST.PAIRS)
+        ms["cuda_core_f_pairs"] = ctx.time_ms(lambda: ST.launch_f_passes(
+            old_f, q0, xd, K, passes=ST.PAIRS, pairs=pairs_c), reps=10)
+        ms["cuda_core_f_fold"] = ctx.time_ms(lambda: ST.launch_f_passes(
+            old_f, q0, xd, K, passes=ST.FOLD, pairs=pairs_c), reps=100)
         ms["e_prepass"] = ctx.time_ms(lambda: ST.launch_prep(q0, xd, K), reps=100)
         ctx.report("scan E pre-pass share (its time alone over E's)",
                    f"{ms['e_prepass']:.4f} of {ms['flat_topk_pallas']:.4f} ms "
                    f"({100 * ms['e_prepass'] / ms['flat_topk_pallas']:.2f}%)")
+        # a small batch: E has B/16 blocks, F a block per SM
+        qs = q0[:128]
+        for name, fn, reps in (("flat_topk_pallas", lambda: ST.flat_topk_pallas(qs, xd, K), 20),
+                               ("flat_topk_pallas2", lambda: ST.flat_topk_pallas2(qs, xd, K), 20),
+                               ("cuda_core_f", lambda: ST.launch_f_passes(old_f, qs, xd, K), 10)):
+            ctx.report(f"scan kernel ms ({name}, B=128 N={n} D={d} k={K} chunk=2048)",
+                       ctx.time_ms(fn, reps=reps, warmup=2))
     plain_ms = ctx.time_ms(lambda: ST._flat_topk_plain(q0, xd, K), reps=1, warmup=0)
     norms = (xd * xd).sum(1)
 
@@ -1795,15 +1837,19 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
 
     library_ms = ctx.time_ms(product_selection, reps=10)
 
-    # bounds: the f32 function (F, the CUDA-core E), and the tensor-core E's
-    # own work: three bf16 products over DP, plus the exact f32 re-scoring of
-    # this run's candidates and of its cold and overflowed (query, chunk) pairs
+    # bounds: the f32 function (the CUDA-core E and F), and each tensor-core
+    # kernel's own work: three bf16 products over DP, plus the exact f32
+    # re-scoring of this run's candidates (E) or survivors (F) and of its cold
+    # and overflowed (query, chunk) pairs
     dp = -(-d // 16) * 16
     nbytes = n * d * 4 + b * d * 4 + b * K * 8
     bound_bytes = nbytes / HBM_BYTES_S * 1e3
     bound_f32 = 2.0 * b * n * d / PEAK_F32 * 1e3
+    products = 6.0 * b * n * dp / PEAK_BF16 * 1e3
     rescored = st["candidates"] + (st["cold"] + st["overflowed"]) * 2048
-    bound_mma = 6.0 * b * n * dp / PEAK_BF16 * 1e3 + 2.0 * d * rescored / PEAK_F32 * 1e3
+    bound_mma = products + 2.0 * d * rescored / PEAK_F32 * 1e3
+    rescored_f = stf["rescored"] + stf["overflowed"] * 2048
+    bound_f = products + 2.0 * d * rescored_f / PEAK_F32 * 1e3
     steps = sum(-(-min(2048, n - lo) // 128) for lo in range(0, n, 2048))
     tile_bytes = -(-b // 16) * steps * (2 * 128 * (dp + 8) * 2 + 2 * 132 * 4)
     lists = max(1, st["lists"])
@@ -1813,17 +1859,30 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
                f"{st['cold']} cold (query, chunk) pairs re-scored in full")
     ctx.report("scan E corpus bytes the query tiles read (bf16 planes + norms, from the shapes)",
                f"{tile_bytes / 1e9:.2f} GB ({-(-b // 16)} tiles of 16 queries)")
+    nc = -(-n // 2048)
+    lists = b * nc
+    ctx.report("scan F filter (one call)",
+               f"{stf}: entries pushed per (query, chunk) {stf['pushed'] / lists:.4f}, survivors "
+               f"re-scored {stf['rescored'] / lists:.4f}, longest list {stf['most_in_a_list']}, "
+               f"{stf['overflowed']} lists overflowed, {stf['refreshes']} compacted")
+    qf = 64 if b > 16 else 16
+    ctx.report("scan F corpus bytes the query tiles read (bf16 planes + norms, from the shapes)",
+               f"{tile_bytes // -(-b // 16) * -(-b // qf) / 1e9:.2f} GB ({-(-b // qf)} tiles of "
+               f"{qf} queries)")
     for name, t in ms.items():
         ctx.report(f"scan kernel ms ({name}, {shape})", t)
     ctx.report("scan plain version ms (one batch)", plain_ms)
     ctx.report("scan yardstick ms (product + selection: f32 torch.matmul per 131,072 rows "
                "+ torch.topk)", library_ms)
     ctx.report("scan bound ms, the f32 function (2*B*N*D f32 ops / 67 TFLOP/s vs bytes / "
-               "3.35 TB/s; F and the CUDA-core E)",
+               "3.35 TB/s; the CUDA-core E and F)",
                f"{max(bound_f32, bound_bytes)} (ops {bound_f32}, bytes {bound_bytes})")
     ctx.report("scan bound ms, the tensor-core E (6*B*N*DP bf16 ops / 989 TFLOP/s + the "
                "exact re-scoring's f32 ops / 67 TFLOP/s vs bytes)",
                f"{max(bound_mma, bound_bytes)} (ops {bound_mma}, bytes {bound_bytes})")
+    ctx.report("scan bound ms, the tensor-core F (the same products + its survivors' exact "
+               "re-scoring's f32 ops vs bytes)",
+               f"{max(bound_f, bound_bytes)} (ops {bound_f}, bytes {bound_bytes})")
     del xd
     common = dict(plain_ms=plain_ms, library_ms=library_ms)
     return {
@@ -1831,10 +1890,11 @@ def phase_scan_main(ctx: Ctx, x1, q1, gt):
                                  max_abs_err=errs["flat_topk_pallas"],
                                  bound_ms=max(bound_mma, bound_bytes),
                                  bound_by="operations" if bound_mma >= bound_bytes else "bytes"),
-        "flat_topk_pallas2": dict(common, ms=ms["flat_topk_pallas2"], launches=launches["F"],
+        "flat_topk_pallas2": dict(common, ms=ms["flat_topk_pallas2"],
+                                  launches=launches["F_mma"],
                                   max_abs_err=errs["flat_topk_pallas2"],
-                                  bound_ms=max(bound_f32, bound_bytes),
-                                  bound_by="operations" if bound_f32 >= bound_bytes else "bytes"),
+                                  bound_ms=max(bound_f, bound_bytes),
+                                  bound_by="operations" if bound_f >= bound_bytes else "bytes"),
     }
 
 # ---------------------------------------------------------------------------
@@ -2027,7 +2087,7 @@ def main() -> int:
     } for name, source, replaces in (
         ("flat_topk_pallas", "zvdb_tpu_torch/csrc/scan_topk_mma.cu",
          "examples/pallas_scan_v1.py:95"),
-        ("flat_topk_pallas2", "zvdb_tpu_torch/csrc/scan_topk.cu",
+        ("flat_topk_pallas2", "zvdb_tpu_torch/csrc/scan_topk_mma.cu",
          "examples/pallas_scan_v2.py:85"))] + [{
         "name": "fused_hop_scores",
         "route": "cuda",

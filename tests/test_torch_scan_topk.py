@@ -7,9 +7,11 @@ example kernels in interpret mode (f32 dots), loaded by path as
 tests/test_pallas_scan.py loads them. Ids must be equal id for id, in slot
 order. Scores within rtol 1e-5, atol 1e-4: the f32 dot sums in another order.
 
-On the CPU `filter_margin` is also held against an emulated bf16x3 split.
+On the CPU `filter_margin` is also held against an emulated bf16x3 split,
+and F's in-chunk filter rule (keep a column while s~ - margin <= the k-th
+smallest s~ + margin) against the exact stable top-k of adversarial chunks.
 The `gpu`-marked tests need the card and skip without one; they hold the
-tensor-core E, F and the CUDA-core E equal bit for bit:
+tensor-core E and F and the CUDA-core E and F equal bit for bit:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_scan_topk.py
 """
 import importlib.util
@@ -167,14 +169,141 @@ def test_filter_margin_formula():
     assert ST.filter_margin(2.0, 3.0, 33) == ST.filter_margin(2.0, 3.0, 48)
 
 
+def _chunk_rule(q, x, k, metric, chunk):
+    """F's in-chunk filter on the CPU: s~ from the emulated bf16x3 split, the
+    exact score from the fmaf chain, L/U = s~ -/+ filter_margin, T the k-th
+    smallest U of each (query, chunk). Checks that the chunk's exact stable
+    top-k lies within {L <= T} and that the survivors' stable top-k is it."""
+    qh, ql = _split(q)
+    xh, xl = _split(x)
+    approx = (qh @ xh.T + qh @ xl.T + ql @ xh.T).double()
+    exact = _fma_dot(q, x)
+    nrm = _fma_dot(x, x).diagonal()
+    if metric == "l2":
+        s_approx = nrm.double()[None, :] - 2.0 * approx
+        s_exact = nrm[None, :] - 2.0 * exact
+    else:
+        s_approx, s_exact = -approx, -exact
+    qn = torch.linalg.vector_norm(q.double(), dim=1)[:, None]
+    xn = torch.linalg.vector_norm(x.double(), dim=1)[None, :]
+    margin = ST.filter_margin(qn, xn, q.shape[1])
+    lo, hi = s_approx - margin, s_approx + margin
+    kept = 0
+    for c0 in range(0, x.shape[0], chunk):
+        sl = slice(c0, c0 + chunk)
+        kk = min(k, lo[:, sl].shape[1])
+        t = torch.kthvalue(hi[:, sl], kk, dim=1).values[:, None]
+        keep = lo[:, sl] <= t
+        want = torch.sort(s_exact[:, sl], dim=1, stable=True).indices[:, :kk]
+        assert bool(torch.gather(keep, 1, want).all())
+        masked = torch.where(keep, s_exact[:, sl], torch.full_like(s_exact[:, sl], _INF))
+        got = torch.sort(masked, dim=1, stable=True).indices[:, :kk]
+        assert torch.equal(got, want)
+        kept += int(keep.sum())
+    return kept
+
+
+_INF = float("inf")
+
+
+def _adversarial(k):
+    """Near-duplicate and equal rows around query 0, rows of norm ~1e3 around
+    a query near the origin (query 1), rows and a query at bf16's underflow."""
+    rng = np.random.default_rng(7 + k)
+    d, nq = 64, 10
+    x = rng.standard_normal((600, d))
+    q = rng.standard_normal((nq, d))
+    x[40:80] = x[0] + 1e-6 * rng.standard_normal((40, d))     # near-duplicates of row 0
+    x[80:84] = x[0]                                           # exact duplicates: ties
+    q[0] = x[0]
+    far = rng.standard_normal((200, d))                        # norm ~1e3 around a query at ~0
+    x[200:400] = far / np.linalg.norm(far, axis=1, keepdims=True) * (1e3 + rng.standard_normal((200, 1)))
+    q[1] = 1e-3 * rng.standard_normal(d)
+    x[400:440] = rng.standard_normal((40, d)) * 2e-38          # at bf16's underflow
+    q[2] = rng.standard_normal(d) * 3e-38
+    return torch.from_numpy(q.astype(np.float32)), torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("k", [1, 10])
+def test_chunk_filter_rule_keeps_the_exact_top_k(metric, k):
+    q, x = _adversarial(k)
+    kept = _chunk_rule(q, x, k, metric, chunk=128)
+    assert kept >= k * q.shape[0] * 5   # every chunk keeps at least its k
+
+
+def _lane_minima_rule(q, x, k, metric, chunk):
+    """The tensor-core F's bound for k <= 32, step by step as the kernel takes
+    it: column c of a 128-column step is seen by lane (c % 128 // 16) * 4 +
+    c % 8 // 2 of 32; after the chunk's first step each lane keeps the least
+    U of its columns and T = the k-th smallest of the 32 minima; a column goes
+    to the list while L <= T; after that a lane's minimum takes only the
+    columns taken; T = min(T, the new bound) after steps 1, 3, 7, ... and at
+    the chunk's end. Checks that the survivors (L <= T at the end) hold the
+    chunk's exact stable top-k and that their stable top-k is it."""
+    qh, ql = _split(q)
+    xh, xl = _split(x)
+    approx = (qh @ xh.T + qh @ xl.T + ql @ xh.T).double()
+    exact = _fma_dot(q, x)
+    nrm = _fma_dot(x, x).diagonal()
+    s_approx = nrm.double()[None, :] - 2.0 * approx if metric == "l2" else -approx
+    s_exact = nrm[None, :] - 2.0 * exact if metric == "l2" else -exact
+    qn = torch.linalg.vector_norm(q.double(), dim=1)[:, None]
+    xn = torch.linalg.vector_norm(x.double(), dim=1)[None, :]
+    margin = ST.filter_margin(qn, xn, q.shape[1])
+    lo, hi = s_approx - margin, s_approx + margin
+    nq, n = s_exact.shape
+    lane = (torch.arange(128) % 128 // 16) * 4 + torch.arange(128) % 8 // 2
+    for c0 in range(0, n, chunk):
+        w = min(chunk, n - c0)
+        steps = -(-w // 128)
+        mins = torch.full((nq, 32), _INF, dtype=torch.float64)
+        t_b = torch.full((nq,), _INF, dtype=torch.float64)
+        taken = torch.zeros((nq, w), dtype=torch.bool)
+
+        def bound():
+            kth = torch.kthvalue(mins, k, dim=1).values
+            return torch.minimum(t_b, kth)
+
+        for t in range(steps):
+            cols = torch.arange(t * 128, min(w, t * 128 + 128))
+            u, l_ = hi[:, c0 + cols], lo[:, c0 + cols]
+            sl = lane[:len(cols)]
+            if t == 0:
+                for j, ln in enumerate(sl.tolist()):
+                    mins[:, ln] = torch.minimum(mins[:, ln], u[:, j])
+                t_b = bound()
+            take = ~(l_ > t_b[:, None])
+            taken[:, cols] = take
+            for j, ln in enumerate(sl.tolist()):
+                mins[:, ln] = torch.where(take[:, j], torch.minimum(mins[:, ln], u[:, j]),
+                                          mins[:, ln])
+            if t + 1 == steps or (t > 0 and ((t + 1) & t) == 0):
+                t_b = bound()
+        keep = taken & (lo[:, c0:c0 + w] <= t_b[:, None])
+        kk = min(k, w)
+        want = torch.sort(s_exact[:, c0:c0 + w], dim=1, stable=True).indices[:, :kk]
+        assert bool(torch.gather(keep, 1, want).all())
+        masked = torch.where(keep, s_exact[:, c0:c0 + w], torch.full((nq, w), _INF))
+        assert torch.equal(torch.sort(masked, dim=1, stable=True).indices[:, :kk], want)
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_lane_minima_bound_keeps_the_exact_top_k(metric, k):
+    # chunk 512: bounds after steps 0, 1 and at the end (3); 88 rows left over
+    q, x = _adversarial(k)
+    _lane_minima_rule(q, x, k, metric, chunk=512)
+
+
 def test_cpu_tensors_count_nothing():
     q, x = (torch.from_numpy(a) for a in _inputs(300, 8, 5, seed=1))
     before = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
-              ST.flat_topk_pallas2.launches)
+              ST.flat_topk_pallas2.launches, ST.flat_topk_pallas2.launches_mma)
     ST.flat_topk_pallas(q, x, 4, chunk=64)
     ST.flat_topk_pallas2(q, x, 4, chunk=64)
     assert (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
-            ST.flat_topk_pallas2.launches) == before
+            ST.flat_topk_pallas2.launches, ST.flat_topk_pallas2.launches_mma) == before
 
 
 def test_cuda_tensor_picks_the_mma_entry_point(monkeypatch):
@@ -190,6 +319,23 @@ def test_cuda_tensor_picks_the_mma_entry_point(monkeypatch):
     assert ST.flat_topk_pallas(q, x, 5) == ("s", "i")
     assert seen == ["tensor cores"]
     assert (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_cuda_tensor_picks_the_mma_entry_point_for_f(monkeypatch):
+    # F on a device other than the CPU takes its tensor-core entry point,
+    # counted by both of F's counters (the checks and the launch stubbed out)
+    q, x = torch.empty((3, 8), device="meta"), torch.empty((50, 8), device="meta")
+    monkeypatch.setattr(ST, "_launch", lambda name, q, v, k, chunk: (q, v, None, None, 3, 50, 8))
+    monkeypatch.setattr(ST, "build_v2_mma", lambda: "tensor cores")
+    monkeypatch.setattr(ST, "build_v2_passes", lambda: "cuda cores")
+    seen = []
+    monkeypatch.setattr(ST, "launch_f_passes",
+                        lambda kernel, *a, **kw: seen.append((kernel, kw)) or ("s", "i", 0, 0))
+    before = (ST.flat_topk_pallas2.launches, ST.flat_topk_pallas2.launches_mma)
+    assert ST.flat_topk_pallas2(q, x, 5) == ("s", "i")
+    assert seen == [("tensor cores", {})]   # every part: pre-pass, pairs and fold
+    assert (ST.flat_topk_pallas2.launches, ST.flat_topk_pallas2.launches_mma) == \
         (before[0] + 1, before[1] + 1)
 
 
@@ -232,14 +378,17 @@ def _tie_aware(q, x, metric, ks, ki, ps, pi):
         assert float((sk - sp).abs().max()) <= tol
 
 
-def _three_ways(q, x, k, metric, chunk):
-    """The tensor-core E, F and the CUDA-core E (uncounted): equal bit for bit."""
+def _four_ways(q, x, k, metric, chunk):
+    """The tensor-core E and F, and the CUDA-core E and F (uncounted): equal
+    bit for bit."""
     es, ei = ST.flat_topk_pallas(q, x, k, metric, chunk=chunk)
     fs, fi = ST.flat_topk_pallas2(q, x, k, metric, chunk=chunk)
     os_, oi = ST.launch(ST.build_v1(), q, x, k, metric, chunk)
+    gs, gi, _, _ = ST.launch_f_passes(ST.build_v2_passes(), q, x, k, metric, chunk)
     torch.cuda.synchronize()
     assert torch.equal(ei, fi) and torch.equal(es, fs)
     assert torch.equal(ei, oi) and torch.equal(es, os_)
+    assert torch.equal(ei, gi) and torch.equal(es, gs)
     return es, ei
 
 
@@ -249,17 +398,20 @@ def _three_ways(q, x, k, metric, chunk):
     (3000, 33, 1, 1, "l2", 256), (5, 16, 9, 10, "l2", 256),
     (9001, 64, 17, 256, "l2", 4096), (4097, 1024, 20, 10, "dot", 2048),
     (777, 20, 33, 100, "l2", 4096), (6000, 96, 300, 10, "dot", 256),
-    (3000, 1024, 5, 256, "l2", 4096)])   # the tightest plan: two stages, D chunks of 64
+    (3000, 1024, 5, 256, "l2", 4096),    # the tightest plan: two stages, D chunks of 64
+    (50_000, 64, 5, 10, "l2", 256)])     # many chunks, a small batch
 def test_kernels_match_plain_on_gpu(cuda_device, n, d, b, k, metric, chunk):
-    # E on the tensor cores == F == the CUDA-core E bit for bit; tie-aware
-    # against the plain version (other summation order)
+    # E and F on the tensor cores == the CUDA-core E and F bit for bit;
+    # tie-aware against the plain version (other summation order)
     q, x = (torch.from_numpy(a).to(cuda_device) for a in _inputs(n, d, b, seed=n + k))
     ps, pi = ST._flat_topk_plain(q, x, k, metric, chunk=chunk)
-    before = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
-              ST.flat_topk_pallas2.launches)
-    es, ei = _three_ways(q, x, k, metric, chunk)
-    assert (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
-            ST.flat_topk_pallas2.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    counters = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
+                ST.flat_topk_pallas2.launches, ST.flat_topk_pallas2.launches_mma)
+    before = counters
+    es, ei = _four_ways(q, x, k, metric, chunk)
+    counters = (ST.flat_topk_pallas.launches, ST.flat_topk_pallas.launches_mma,
+                ST.flat_topk_pallas2.launches, ST.flat_topk_pallas2.launches_mma)
+    assert counters == tuple(c + 1 for c in before)
     _tie_aware(q, x, metric, es, ei, ps, pi)
 
 
@@ -268,7 +420,7 @@ def test_kernels_match_plain_on_gpu(cuda_device, n, d, b, k, metric, chunk):
 def test_kernel_ties_on_gpu(cuda_device, metric):
     q, x = (torch.from_numpy(a).to(cuda_device) for a in _inputs(1000, 16, 32, seed=11, dup=40))
     _, pi = ST._flat_topk_plain(q, x, 10, metric, chunk=256)
-    _, ki = _three_ways(q, x, 10, metric, 256)
+    _, ki = _four_ways(q, x, 10, metric, 256)
     assert torch.equal(ki[0], pi[0])
     if metric == "l2":
         assert ki[0].tolist() == [0, 308, 307, 306, 305, 304, 303, 302, 301, 300]
@@ -288,10 +440,13 @@ def _overflow_inputs(seed):
 @pytest.mark.gpu
 def test_mma_route_overflow_on_gpu(cuda_device):
     q, x = (torch.from_numpy(a).to(cuda_device) for a in _overflow_inputs(seed=4))
-    _three_ways(q, x, 100, "l2", 2048)
+    _four_ways(q, x, 100, "l2", 2048)
     st = torch.zeros(5, dtype=torch.int64, device=cuda_device)
     ST.launch(ST.build_v1_mma(), q, x, 100, "l2", 2048, stats=st)
     assert dict(zip(ST._STATS, st.tolist()))["overflowed"] >= 1
+    st.zero_()
+    ST.launch_f_passes(ST.build_v2_mma(), q, x, 100, "l2", 2048, stats=st)
+    assert dict(zip(ST._STATS_F, st.tolist()))["overflowed"] >= 1
 
 
 @pytest.mark.gpu
@@ -301,5 +456,5 @@ def test_mma_route_misaligned_rows_on_gpu(cuda_device):
     xm = buf[1:].view(x.shape)
     xm.copy_(x)
     assert xm.data_ptr() % 16 == 4
-    es, ei = _three_ways(q, xm, 10, "l2", 256)
+    es, ei = _four_ways(q, xm, 10, "l2", 256)
     assert torch.equal(ei, ST.flat_topk_pallas(q, x, 10, chunk=256)[1])

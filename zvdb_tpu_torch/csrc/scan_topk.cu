@@ -1,9 +1,12 @@
 // Exact flat top-k scans for Hopper (sm_90a): kernels E and F.
 //
-// Replaces examples/pallas_scan_v1.py:_scan_kernel (wrapper flat_topk_pallas,
-// kernel E) and examples/pallas_scan_v2.py:_scan_kernel (wrapper
-// flat_topk_pallas2, kernel F). Both TPU kernels compute one function, and so
-// do both entry points here. For each query the corpus is taken in chunks of
+// The CUDA-core forms of kernels E and F: the ports of examples/
+// pallas_scan_v1.py:_scan_kernel (wrapper flat_topk_pallas, kernel E) and
+// examples/pallas_scan_v2.py:_scan_kernel (wrapper flat_topk_pallas2, kernel
+// F), which csrc/scan_topk_mma.cu now runs on the tensor cores bit for bit;
+// these stay as its reference, reached only through ops/scan_topk.py's
+// `launch` and `launch_f_passes`. Both TPU kernels compute one function, and
+// so do both entry points here. For each query the corpus is taken in chunks of
 // `chunk` rows, in order; per chunk
 //
 //     s[c] = ||x_c||^2 - 2 q.x_c   (l2; the norm recomputed in f32 from the row)
@@ -44,7 +47,7 @@
 // (score, index) with the first-index tie rule, stopping a chunk's rounds at
 // the first pair not taken (fact 2).
 //
-// F, zvdb_flat_topk_v2: two passes over the same contract. Pass 1 runs one
+// F, zvdb_flat_topk_v2_passes: two passes over the same contract. Pass 1 runs one
 // block per (query tile, chunk), all in parallel, and writes each chunk's k
 // smallest pairs, ascending with ties to the lower index (fact 1), into a
 // scratch array the wrapper allocates ([B, n_chunks, k] scores and ids).
@@ -429,10 +432,11 @@ extern "C" int zvdb_flat_topk_v1(const void* q, const void* x, void* out_s, void
   return (int)cudaGetLastError();
 }
 
-// Kernel F's passes on `stream`: passes = 1 the pairs pass alone, 2 the fold
-// pass alone (over pair_s / pair_i as pass 1 left them), 3 both. Returns a
-// CUDA error code (0 on success). zvdb_flat_topk_v2 runs both; the split is
-// for timing them apart.
+// The CUDA-core kernel F's passes on `stream`: passes = 1 the pairs pass
+// alone, 2 the fold pass alone (over pair_s / pair_i as pass 1 left them), 3
+// both. As zvdb_flat_topk_v1, plus the scratch pair_s [B, nc, k] f32 and
+// pair_i [B, nc, k] int32 with nc = ceil(N / chunk) <= 65535. Returns a CUDA
+// error code (0 on success).
 extern "C" int zvdb_flat_topk_v2_passes(const void* q, const void* x, void* pair_s,
                                         void* pair_i, void* out_s, void* out_i, int B, int N,
                                         int D, int k, int chunk, int l2, void* stream,
@@ -469,12 +473,3 @@ extern "C" int zvdb_flat_topk_v2_passes(const void* q, const void* x, void* pair
   return (int)cudaGetLastError();
 }
 
-// Kernel F on `stream` (both passes); returns a CUDA error code (0 on
-// success). As zvdb_flat_topk_v1, plus the scratch pair_s [B, nc, k] f32 and
-// pair_i [B, nc, k] int32 with nc = ceil(N / chunk) <= 65535.
-extern "C" int zvdb_flat_topk_v2(const void* q, const void* x, void* pair_s, void* pair_i,
-                                 void* out_s, void* out_i, int B, int N, int D, int k,
-                                 int chunk, int l2, void* stream) {
-  return zvdb_flat_topk_v2_passes(q, x, pair_s, pair_i, out_s, out_i, B, N, D, k, chunk, l2,
-                                  stream, 3);
-}

@@ -28,10 +28,16 @@ each query's running k-th score plus a proven margin (`filter_margin`), and
 re-scores the survivors with the exact f32 FMA chain, so E's output equals
 the CUDA-core kernel's and F's bit for bit. Every legal shape takes that
 route. The CUDA-core E (`zvdb_flat_topk_v1`, csrc/scan_topk.cu) stays
-reachable through `launch`, uncounted. F (csrc/scan_topk.cu) scores all
-(query tile, chunk) pairs in parallel into a scratch of each chunk's k
-smallest pairs and replays them per query. On a CPU tensor both run
-`_flat_topk_plain`, the same function in plain PyTorch.
+reachable through `launch`, uncounted. F runs the same source's second entry
+point: E's pre-pass; a filter pass over all (64-query tile, chunk) pairs in
+parallel, on the tensor cores, against a bound found inside the chunk (an
+upper bound s~ + margin of k of its columns: for k <= 32 the k-th smallest of
+32 lanes' minima, else by a select); a select pass that re-scores the
+survivors with the exact f32 chain and writes each chunk's k smallest pairs
+into a scratch; a fold that replays them per query. So F too equals the
+CUDA-core kernels bit for bit. The CUDA-core F (`zvdb_flat_topk_v2_passes`,
+csrc/scan_topk.cu) stays reachable through `launch_f_passes`, uncounted. On a
+CPU tensor both run `_flat_topk_plain`, the same function in plain PyTorch.
 
 The filter's margin. With u = 2^-24, DP = D rounded up to 16 and
 P = sum_d |q_d x_d| <= ||q|| ||x||, the filter's score s~ (three bf16
@@ -43,7 +49,11 @@ u P, the chain itself <= 1.0001 D u P, both scores round nrm - 2a once, and
 the last term covers subnormals. `filter_margin` doubles every term (the
 derivation in full heads csrc/scan_topk_mma.cu). A column whose s~ exceeds
 T + margin, T the query's buffer worst at the start of the chunk, has an
-exact score above T and can never be taken, so the filter is exact.
+exact score above T and can never be taken, so the filter is exact. F's
+filter pass keeps a column while s~ - margin <= T, T at least the k-th
+smallest s~ + margin of k of the chunk's columns: those k columns have exact
+scores <= T, so a column dropped has an exact score above the chunk's k-th
+smallest.
 """
 from __future__ import annotations
 
@@ -62,6 +72,11 @@ build_info_mma: dict = {}   # scan_topk_mma.cu: the same
 
 _INF = float("inf")
 _STATS = ("candidates", "most_in_a_list", "overflowed", "cold", "lists")
+_STATS_F = ("pushed", "most_in_a_list", "overflowed", "rescored", "refreshes")
+# kernel F's parts, for `launch_f_passes`: the tensor-core route's pre-pass,
+# filter pass and select pass (together its pairs pass), and the fold
+PREP, FILTER, FOLD, SELECT = 1, 2, 4, 8
+PAIRS = FILTER | SELECT
 
 
 def filter_margin(q_norm, x_norm, d: int):
@@ -103,18 +118,24 @@ def build_v1_mma():
     return fn
 
 
-def build_v2():
-    """Kernel F's entry point, from the same library as kernel E."""
+def build_v2_mma():
+    """Kernel F's tensor-core entry point, from csrc/scan_topk_mma.cu (E's
+    library), with its scratch size function as `.scratch_bytes`
+    (`launch_f_passes` runs it)."""
     fn, info = cuda_build.load(
-        "scan_topk.cu", "zvdb_flat_topk_v2",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    build_info.update(info)
+        "scan_topk_mma.cu", "zvdb_flat_topk_v2_mma",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int])
+    size, _ = cuda_build.load("scan_topk_mma.cu", "zvdb_flat_topk_v2_mma_scratch",
+                              [ctypes.c_int] * 5)
+    size.restype = ctypes.c_longlong
+    fn.scratch_bytes = size
+    build_info_mma.update(info)
     return fn
 
 
 def build_v2_passes():
-    """Kernel F's pass-selecting entry point, from the same library as F:
-    for timing its two passes apart (`launch_f_passes`)."""
+    """The CUDA-core F's pass-selecting entry point, from csrc/scan_topk.cu
+    (E's CUDA-core library): for `launch_f_passes`."""
     fn, info = cuda_build.load(
         "scan_topk.cu", "zvdb_flat_topk_v2_passes",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int])
@@ -257,36 +278,32 @@ def flat_topk_pallas2(q: torch.Tensor, vectors: torch.Tensor, k: int, metric: st
                       q_tile: int = 256, chunk: int = 2048):
     """Exact top-k over the full corpus (kernel F, two passes through a
     [B, ceil(N/chunk), k] scratch of each chunk's smallest pairs). Same
-    results as `flat_topk_pallas`."""
+    results as `flat_topk_pallas`.
+
+    On a CUDA tensor every legal shape launches the tensor-core kernel
+    (csrc/scan_topk_mma.cu), counted by `launches` and `launches_mma`. A CPU
+    tensor takes the plain version and counts nothing."""
     _check_args(k, q_tile, chunk)
     if q.device.type == "cpu":
         return _flat_topk_plain(q, vectors, k, metric, q_tile, chunk)
     q, x, out_s, out_i, b, n, d = _launch("flat_topk_pallas2", q, vectors, k, chunk)
     if b == 0:
         return out_s, out_i
-    nc = -(-n // chunk)
-    pair_s = torch.empty((b, nc, k), dtype=torch.float32, device=q.device)
-    pair_i = torch.empty((b, nc, k), dtype=torch.int32, device=q.device)
-    kernel = build_v2()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernel(q.data_ptr(), x.data_ptr(), pair_s.data_ptr(), pair_i.data_ptr(),
-                    out_s.data_ptr(), out_i.data_ptr(), b, n, d, k, chunk, int(metric == "l2"),
-                    stream)
-    if rc != 0:
-        raise RuntimeError(f"flat_topk_pallas2: kernel launch failed with CUDA error {rc}")
+    out_s, out_i, _, _ = launch_f_passes(build_v2_mma(), q, x, k, metric, chunk)
     flat_topk_pallas2.launches += 1
+    flat_topk_pallas2.launches_mma += 1
     return out_s, out_i
 
 
-flat_topk_pallas2.launches = 0
+flat_topk_pallas2.launches = 0       # every launch of kernel F
+flat_topk_pallas2.launches_mma = 0   # the launches on the tensor cores (all of them)
 
 
 def _mma_scratch(kernel, b: int, n: int, d: int, k: int, chunk: int, device):
     nbytes = kernel.scratch_bytes(b, n, d, k, chunk)
     if nbytes < 0:
-        raise ValueError(f"flat_topk_pallas: the tensor-core kernel refuses B={b}, N={n}, D={d}, "
-                         f"k={k}, chunk={chunk}")
+        raise ValueError(f"{kernel.__name__}: the tensor-core kernel refuses B={b}, N={n}, "
+                         f"D={d}, k={k}, chunk={chunk}")
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
@@ -303,25 +320,49 @@ def launch_prep(q, vectors, k: int, chunk: int = 2048):
         raise RuntimeError(f"flat_topk_pallas: pre-pass launch failed with CUDA error {rc}")
 
 
-def launch_f_passes(q, vectors, k: int, metric: str = "l2", chunk: int = 2048,
-                    passes: int = 3, pairs=None):
-    """Run kernel F's passes on CUDA tensors, uncounted: `passes` 1 the pairs
-    pass, 2 the fold pass, 3 both. `pairs` = (pair_s, pair_i) from an earlier
-    call is reused, so a fold alone replays what a pairs pass wrote. Returns
-    (scores, ids, pairs). Raises RuntimeError if the launch fails."""
+def launch_f_passes(kernel, q, vectors, k: int, metric: str = "l2", chunk: int = 2048,
+                    passes: int = PREP | PAIRS | FOLD, pairs=None, scratch=None, stats=None):
+    """Run parts of kernel F through `kernel`, `build_v2_mma()` (tensor
+    cores) or `build_v2_passes()` (CUDA cores), on CUDA tensors, uncounted.
+    `passes` is a sum of PREP (the tensor-core route's pre-pass: the bf16
+    planes and norms, into `scratch`), FILTER and SELECT (the tensor-core
+    route's pairs pass, PAIRS: each chunk's survivors into `scratch`, then
+    its k smallest pairs into `pairs`; the CUDA-core route's one pairs pass
+    for either) and FOLD (their replay into the output). `pairs` =
+    (pair_s, pair_i) and `scratch` from an earlier call are reused, so a part
+    alone runs on what the others wrote. `stats`, for the tensor-core route
+    only, is None or a zeroed int64 CUDA tensor of 5 that the filter pass
+    adds to: entries pushed to the lists, the longest list at a bound or a
+    chunk's end, lists that overflowed (their chunk re-scored in full),
+    survivors re-scored by the select pass, and lists compacted (k <= 32) or
+    refreshed by a select (k > 32). Returns (scores, ids, pairs, scratch).
+    Raises RuntimeError if a launch fails."""
     q, x, out_s, out_i, b, n, d = _launch("flat_topk_pallas2", q, vectors, k, chunk)
     nc = -(-n // chunk)
     if pairs is None:
         pairs = (torch.empty((b, nc, k), dtype=torch.float32, device=q.device),
                  torch.empty((b, nc, k), dtype=torch.int32, device=q.device))
     if b == 0:
-        return out_s, out_i, pairs
-    kernel = build_v2_passes()
+        return out_s, out_i, pairs, scratch
+    mma = kernel.__name__.endswith("_mma")
+    if stats is not None and (not mma or stats.dtype != torch.int64 or stats.numel() != 5
+                              or stats.device != q.device):
+        raise ValueError("launch_f_passes: stats is a 5-element int64 tensor on q's device, "
+                         "for the tensor-core entry point")
+    l2 = int(metric == "l2")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernel(q.data_ptr(), x.data_ptr(), pairs[0].data_ptr(), pairs[1].data_ptr(),
-                    out_s.data_ptr(), out_i.data_ptr(), b, n, d, k, chunk, int(metric == "l2"),
-                    stream, passes)
+        if mma:
+            if scratch is None:
+                scratch = _mma_scratch(kernel, b, n, d, k, chunk, q.device)
+            rc = kernel(q.data_ptr(), x.data_ptr(), scratch.data_ptr(), pairs[0].data_ptr(),
+                        pairs[1].data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                        0 if stats is None else stats.data_ptr(), b, n, d, k, chunk, l2, stream,
+                        passes)
+        else:
+            rc = kernel(q.data_ptr(), x.data_ptr(), pairs[0].data_ptr(), pairs[1].data_ptr(),
+                        out_s.data_ptr(), out_i.data_ptr(), b, n, d, k, chunk, l2, stream,
+                        (1 if passes & PAIRS else 0) | (2 if passes & FOLD else 0))
     if rc != 0:
         raise RuntimeError(f"flat_topk_pallas2: kernel launch failed with CUDA error {rc}")
-    return out_s, out_i, pairs
+    return out_s, out_i, pairs, scratch
