@@ -138,7 +138,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                   duplicated ids, then over the corpus at the experiment's
                   shape (B=4992, K=256) and the cagra_1m hop (B=2048, K=128 of
                   which 96 live): launches, ms, plain, gather alone, bound
-                  (the bytes of each distinct row once, ids, q and output).
+                  (the bytes of each distinct row once, ids, q and output);
+ 20. hnsw main  - the hnsw_1m configuration (the same corpus and queries,
+                  HNSWConfig(dim=128, m=16, ef_construction=100,
+                  build_batch=8192, block_topk="pallas"), SearchConfig()
+                  defaults) built by the one-shot build from rows on the
+                  device: kernel D's launches for the build (all on the
+                  tensor cores, equal to the base layer's sum of
+                  ceil(c_blocks/cc); none during search), peak device
+                  memory, the level histogram and max_level, an ef sweep
+                  over {16, 24, 32, 48, 64, 96} on the first 2048 queries
+                  (the first ef with recall@10 >= 0.95, else 128, as
+                  bench.py's hnsw row), recall over all queries; two timed
+                  builds and a traced one (stage seconds); kernel D on the
+                  base layer's own first chunk against its plain version;
+ 21. hnsw server - a SearchServer over the HNSW index, as in phase 15;
+ 22. hnsw times - search and server QPS at that ef, one batch taken apart
+                  (the greedy descent with a host check after every hop and
+                  with all 32 hops unsynced, the anchor seeds, the beam), a
+                  torch.profiler breakdown of a search batch, 1% of ids
+                  removed (none may come back), a filter on even ids in
+                  "scan" (equal to the masked exact search) and "beam"
+                  modes, and a save/load round trip of a 100k-row index
+                  (ids equal after load).
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -1981,6 +2003,232 @@ def phase_hop(ctx: Ctx, x1, q1):
     return res
 
 
+# ---------------------------------------------------------------------------
+# HNSW: the one-shot build (kernel D in its base layer) and hierarchical search
+
+EFS = (16, 24, 32, 48, 64, 96)
+
+
+def hnsw_config(ctx: Ctx):
+    from zvdb_tpu_torch import HNSWConfig
+
+    # the bench row's configuration (bench.py:686) with the kernel's selection
+    return HNSWConfig(dim=ctx.dim, m=16, ef_construction=100, build_batch=8192,
+                      block_topk="pallas")
+
+
+def phase_hnsw_main(ctx: Ctx, x1, q1, gt):
+    from zvdb_tpu_torch import HNSW
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.stats import index_stats
+
+    dev = ctx.device
+    cfg = hnsw_config(ctx)
+    ctx.report("hnsw_1m config", cfg)
+    xd = torch.from_numpy(x1).to(dev)
+    ctx.sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    # the main path: build, then search; counts read after each
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    idx = HNSW(cfg, seed=0, device=dev)
+    idx.build(xd)
+    ctx.sync()
+    build_s = [time.perf_counter() - t0]
+    after_build = kernel_counts()
+    lb = idx.build_stats
+    expected = sum(-(-cb // lb["cc"]) for cb in lb["c_blocks"])
+    nq = min(2048, q1.shape[0])
+    sweep, ef, rec = {}, None, 0.0
+    for e in EFS:
+        ids = batched_ids(ctx, idx, q1[:nq], ef_search=e)
+        sweep[e] = rec = recall_at_k(ids, gt[:nq], K)
+        if rec >= 0.95:
+            ef = e
+            break
+    if ef is None:
+        ef = 128
+        sweep[ef] = rec = recall_at_k(batched_ids(ctx, idx, q1[:nq], ef_search=ef), gt[:nq], K)
+    ids = batched_ids(ctx, idx, q1, ef_search=ef)
+    ctx.sync()
+    after_search = kernel_counts()
+    rec_all = recall_at_k(ids, gt, K)
+    ctx.report("hnsw_1m kernel launches", f"build: block_bins {after_build['D']}, of them on "
+               f"the tensor cores {after_build['D_mma']} (expected sum of ceil(c_blocks/cc) = "
+               f"{expected} for the base layer); others {after_build}; search: "
+               f"{ {k: after_search[k] - after_build[k] for k in after_search} }")
+    if dev.type == "cuda":
+        ctx.report("hnsw_1m peak device memory GB (build + search, max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    st = index_stats(idx)
+    ctx.report("hnsw_1m levels", f"max_level {st['max_level']} (levels_cap {idx.levels_cap}), "
+               f"histogram {st['levels_hist']}, entry row {idx.state.entry}, capacity "
+               f"{idx.capacity}, base degree {st['degree']}, anchors "
+               f"{idx.state.anchors.shape[0]}, state GB {st['total_bytes'] / 1e9:.3f}")
+    ctx.report("hnsw_1m ef sweep recall@10 (first 2048 queries)", sweep)
+    ctx.report(f"hnsw_1m recall@10 (ef={ef}, all queries)", rec_all)
+    others = {k: v for k, v in after_build.items() if k not in ("D", "D_mma")}
+    if not ctx.rehearse and (after_build["D"] != expected or after_build["D_mma"] != expected
+                             or expected == 0 or any(others.values())):
+        raise AssertionError(f"build launched {after_build}, expected D == D_mma == {expected} "
+                             "only")
+    if after_search != after_build:
+        raise AssertionError(f"search launched kernels: {after_build} -> {after_search}")
+    if st["degree"]["isolated"] or st["max_level"] != idx.state.max_level:
+        raise AssertionError(f"hnsw_1m graph: {st['degree']}, max_level {st['max_level']}")
+    if rec < 0.95 and not ctx.rehearse:
+        ctx.report("hnsw_1m recall@10 stays below 0.95 up to ef=128", rec)
+
+    # a second timed build, then a traced one (a sync between stages)
+    for trace in (False, True):
+        if trace:
+            os.environ["ZVDB_BUILD_TRACE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            other = HNSW(cfg, seed=1, device=dev)
+            other.build(xd)
+            ctx.sync()
+            build_s.append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("ZVDB_BUILD_TRACE", None)
+        if trace:
+            ctx.report("hnsw_1m traced build stage seconds", {
+                k: round(v, 4) for k, v in other.build_stats["stages"].items()})
+        del other
+    ctx.report("hnsw_1m build points/s (rows already on the device; two builds, then a traced "
+               "one)", [ctx.n / s for s in build_s])
+    ctx.report("hnsw_1m build seconds, best of the two untraced", min(build_s[:2]))
+
+    # kernel D on the HNSW base layer's own first chunk (the last pass),
+    # held against its plain version at the build's precision
+    bp = lb["first_chunk"]
+    valid = bp >= 0
+    safe = bp.clamp(min=0).long()
+    v = xd[safe]
+    vn = torch.where(valid, (xd * xd).sum(-1)[safe], float("inf"))
+    compare_block_case(ctx, f"block hnsw_1m base-layer chunk {tuple(v.shape)} high", v, vn, 128,
+                       "l2", "high")
+    del xd, v, vn
+    return idx, ids, ef
+
+
+def phase_hnsw_times(ctx: Ctx, idx, x1, q1, gt, ef):
+    from zvdb_tpu_torch import HNSW
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.index import hnsw as TH
+    from zvdb_tpu_torch.index.flat import masked_exact_search
+    from zvdb_tpu_torch.ops import distance as D
+
+    dev = ctx.device
+    kw = {"ef_search": ef}
+    ctx.report(f"hnsw_1m search QPS (ef={ef}, batches of {ctx.batch}, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs=kw))
+    ctx.report("hnsw_1m server QPS (8 threads, requests of 16 queries)",
+               server_qps(ctx, idx, q1, search_kwargs=kw))
+
+    # one batch taken apart: descent, anchor seeding, beam (the search's own calls)
+    cfg, sc, st = idx.cfg, idx.search_cfg, idx.state
+    prec = TH.torch_precision(cfg.precision)
+    qp = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(dev), cfg.metric)
+    scorer = TH.make_packed_scorer(idx._packed(), qp, prec)
+    reps = 2 if ctx.rehearse else 10
+
+    def descent(early_exit):
+        return TH.descend(st, qp, cfg.metric, idx.levels_cap, max_upper_iters=sc.max_upper_iters,
+                          scorer=scorer, early_exit=early_exit)
+
+    ms = {f"descent (greedy, {'host check after every hop' if e else 'all 32 hops, no sync'})":
+          ctx.time_ms(lambda e=e: descent(e), reps=reps) for e in (True, False)}
+    ep, ep_s = descent(True)
+    ep_fixed, _ = descent(False)
+    if not torch.equal(ep, ep_fixed):
+        raise AssertionError("the two greedy forms reached other rows")
+    ms["anchor seeds ([B, A] product + top-16)"] = ctx.time_ms(
+        lambda: TH.anchor_seeds(st, qp, sc.seed_anchors, cfg.metric, prec), reps=reps)
+    a_rows, a_s = TH.anchor_seeds(st, qp, sc.seed_anchors, cfg.metric, prec)
+    seeds, seed_s = torch.cat([ep[:, None], a_rows], 1), torch.cat([ep_s[:, None], a_s], 1)
+    ms[f"beam (ef={ef})"] = ctx.time_ms(lambda: TH.beam_layer_fn(
+        scorer, seeds, seed_s, st.nbr0, max(ef, K), expand=sc.expand, max_iters=sc.max_iters,
+        use_degree=sc.search_degree, dedupe_candidates=sc.dedupe_candidates), reps=reps)
+    ms["whole search() call"] = ctx.time_ms(lambda: idx.search(q1[:ctx.batch], K, **kw),
+                                            reps=reps)
+    for name, t in ms.items():
+        ctx.report(f"hnsw_1m ms a batch of {ctx.batch}: {name}", t)
+    t_exit, t_fixed = list(ms.values())[:2]
+    ctx.report("hnsw_1m greedy form", "the search checks after every hop; faster here: "
+               f"{'the host check' if t_exit <= t_fixed else 'all hops'}")
+    profile_search(ctx, idx, q1, label="hnsw_1m", search_kwargs=kw)
+
+    # tombstones: remove 1% of ids; none may come back
+    rng = np.random.default_rng(9)
+    dead = rng.choice(ctx.n, ctx.n // 100, replace=False)
+    t0 = time.perf_counter()
+    idx.remove(dead)
+    ctx.sync()
+    rm_s = time.perf_counter() - t0
+    ids = batched_ids(ctx, idx, q1, **kw)
+    hit = int(np.isin(ids, dead).sum())
+    ctx.report("hnsw_1m remove 1% of ids", f"{dead.size} ids in {rm_s:.3f} s; removed ids "
+               f"returned: {hit}; recall@10 vs the unfiltered truth {recall_at_k(ids, gt, K)}")
+    if hit:
+        raise AssertionError(f"{hit} removed ids returned")
+
+    # filtered search on even ids, both modes
+    even = np.zeros(ctx.n, bool)
+    even[::2] = True
+    qb = q1[:ctx.batch]
+    cap = st.vectors.shape[0]
+    ok_rows = torch.zeros(cap, dtype=torch.bool, device=dev)   # the engine's mask, by row
+    ok_rows[:ctx.n] = torch.from_numpy(even).to(dev) & ~idx._dead_rows[:ctx.n]
+    for mode in ("scan", "beam"):
+        t0 = time.perf_counter()
+        s, i = idx.search(qb, K, allowed=even, filter_mode=mode, **kw)
+        ctx.sync()
+        t = time.perf_counter() - t0
+        got = i.cpu().numpy()
+        if (got[got >= 0] % 2).any() or np.isin(got, dead).any():
+            raise AssertionError(f"filter_mode={mode} returned an odd or removed id")
+        line = (f"{t * 1e3:.1f} ms for {qb.shape[0]} queries, {(got >= 0).mean():.4f} of "
+                "slots filled")
+        if mode == "scan":
+            bias = torch.where(ok_rows, 0.0, float("inf"))
+            _, wr = masked_exact_search(st.vectors, st.norms + bias,
+                                        torch.ones(cap, device=dev),
+                                        torch.from_numpy(qb).to(dev), K, cfg.metric,
+                                        precision=cfg.precision)
+            if not torch.equal(i, wr):
+                raise AssertionError("filter_mode=scan differs from the masked exact search")
+            line += "; equal to the masked exact search"
+        ctx.report(f"hnsw_1m filter even ids, filter_mode={mode}", line)
+
+    # save / load round trip at the bench row's size
+    n_small = min(100_000, ctx.n)
+    small = HNSW(hnsw_config(ctx), seed=2, device=dev)
+    small.build(torch.from_numpy(x1[:n_small]).to(dev))
+    before = small.search(qb, K, **kw)[1]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "hnsw_100k.npz")
+    try:
+        t0 = time.perf_counter()
+        small.save(path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = HNSW.load(path, device=dev)
+        ctx.sync()
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    after = back.search(qb, K, **kw)[1]
+    if not torch.equal(before, after):
+        raise AssertionError("ids differ after the save/load round trip")
+    ctx.report("hnsw 100k save/load", f"save {t_save:.2f} s, load {t_load:.2f} s, file "
+               f"{size / 1e6:.1f} MB; ids equal after load")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -2022,6 +2270,13 @@ def main() -> int:
     phase_compare_scan(ctx)
     te = phase_scan_main(ctx, x1, q1, gt)
     tg = phase_hop(ctx, x1, q1)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    hn_idx, hn_ids, hn_ef = phase_hnsw_main(ctx, x1, q1, gt)
+    phase_server(ctx, hn_idx, q1, hn_ids, label="hnsw_1m ", search_kwargs={"ef_search": hn_ef},
+                 max_differ=0.01)
+    phase_hnsw_times(ctx, hn_idx, x1, q1, gt, hn_ef)
+    del hn_idx
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{

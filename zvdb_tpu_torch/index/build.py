@@ -1,17 +1,27 @@
-"""Diversity pruning and reverse-edge merges of the graph builds (port of the
-shared part of zvdb_tpu/index/build.py: `select_neighbors`, `_reverse_pass`,
-`_reverse_pass_bulk`). The HNSW batch build and level sampling are not
-ported yet.
+"""The graph builds' shared pieces and the HNSW one-shot build (port of
+zvdb_tpu/index/build.py): `select_neighbors`, `_reverse_pass`,
+`_reverse_pass_bulk`, `sample_levels`, `reorder_rows_diverse`,
+`_subset_knn_layer`, `_attach_anchors` and `bulk_build_oneshot`. The batched
+HNSW build (`build_batch_impl`, `_run_batches`, `bulk_build`,
+`extend_graph`) and the build checkpoints are not ported yet (ROADMAP queue 1
+item 1b).
 
 Products take their precision by name (`precision`): the JAX package runs
 them under an ambient `jax.default_matmul_precision`, which PyTorch does not
 have. "Drop" scatters of the JAX version are masked writes here, and tables
-are updated in place where JAX returns copies.
+are updated in place where JAX returns copies. The one-shot build draws its
+levels, graphs and anchors from one torch.Generator, so one seed builds a
+different graph in each package; its deterministic stages equal JAX's on
+equal inputs.
 """
 from __future__ import annotations
 
+import math
+import os
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops import distance as D
@@ -186,3 +196,190 @@ def _reverse_pass_bulk(
     # rows without reverse edges merge against all-invalid candidates: the
     # result is the row itself, distance-sorted
     return new_rows, new_d
+
+
+# ---------------------------------------------------------------------------
+# the HNSW one-shot build
+
+
+def sample_levels(gen: torch.Generator, n: int, m: int, levels_cap: int,
+                  ml: Optional[float]) -> np.ndarray:
+    """Geometric level sampling, level = floor(-ln(U) * mL), mL = 1/ln(m),
+    U uniform on [1e-9, 1) in f32, clipped to [0, levels_cap]."""
+    mlv = ml if ml is not None else 1.0 / math.log(max(m, 2))
+    u = torch.clamp(torch.rand(n, generator=gen, dtype=torch.float32), min=1e-9)
+    lv = torch.floor(-torch.log(u) * mlv).to(torch.int32)
+    return torch.clamp(lv, 0, levels_cap).numpy()
+
+
+def reorder_rows_diverse(state, cfg):
+    """Reorder every base-layer adjacency row diversity-first, IN PLACE.
+
+    Rows end up nearest-first after the reverse-edge merges, so a
+    truncated-degree search (SearchConfig.search_degree) would read only
+    intra-cluster edges. This pass re-runs the diversity rule per row and
+    stores the kept (diverse) edges first, in tiles of 8192 rows, at the
+    build's precision ("default" takes "high"). Rows of unused slots keep
+    theirs. Returns the state."""
+    from .hnsw import torch_precision
+
+    cap = state.vectors.shape[0]
+    deg = state.nbr0.shape[1]
+    prec = torch_precision(cfg.precision if cfg.precision != "default" else "high")
+    tile = 8192
+    for lo in range(0, cap, tile):
+        hi = min(lo + tile, cap)
+        nbr, dst = state.nbr0[lo:hi], state.dist0[lo:hi]
+        base_vec = state.vectors[lo:hi].float() * state.q_scale
+        base_norm = state.norms[lo:hi]
+        # select_neighbors takes surrogate scores; the stored dists are true ones
+        scores = dst - base_norm[:, None] if cfg.metric == "l2" else dst
+        new_ids, new_d = select_neighbors(state, base_vec, base_norm, nbr, scores, deg,
+                                          cfg.alpha, cfg.metric, precision=prec)
+        live = (state.levels[lo:hi] >= 0)[:, None]
+        state.nbr0[lo:hi] = torch.where(live, new_ids, nbr)
+        state.dist0[lo:hi] = torch.where(live, new_d, dst)
+    return state
+
+
+def _subset_knn_layer(xj: torch.Tensor, rows: np.ndarray, degree: int, alpha: float,
+                      metric: str, gen: torch.Generator):
+    """Navigable graph over a subset of rows (one upper HNSW layer): the
+    cluster-kNN builder (reverse edges, random long-range links; exact
+    per-block top-k at its default "high" precision, as JAX's call takes
+    it) over xj[rows]. Upper layers route the greedy descent, and an exact
+    kNN graph over clustered data has no long edges. Returns (nbrs [S,
+    degree] int32 GLOBAL row ids, dists [S, degree])."""
+    from .knn_graph import build_knn_graph
+
+    s = rows.shape[0]
+    rows_t = torch.as_tensor(rows, dtype=torch.int64, device=xj.device)
+    nbrs_l, dists_l, *_ = build_knn_graph(xj[rows_t], degree, gen, metric=metric,
+                                          alpha=max(alpha, 1.1))
+    local = nbrs_l[:s]
+    glob = torch.where(local >= 0, rows_t[local.clamp(min=0).long()], -1).to(torch.int32)
+    return glob, dists_l[:s]
+
+
+def _attach_anchors(state, n: int, gen: torch.Generator):
+    """Sample a = 2^clamp(ceil(log2(n/12)), 10, 15) rows (all rows when that
+    is n or more) as the dense anchor seed table, IN PLACE: dequantized
+    copies of the stored rows, their norms and their row ids."""
+    if n <= 0:
+        return state
+    a = 1 << max(10, min(15, int(math.ceil(math.log2(max(n, 2) / 12.0)))))
+    dev = state.vectors.device
+    if a >= n:
+        rows = torch.arange(n, dtype=torch.int32, device=dev)
+    else:
+        rows = torch.randperm(n, generator=gen)[:a].to(torch.int32).to(dev)
+    state.anchors = state.vectors[rows.long()].float() * state.q_scale
+    state.a_norms = state.norms[rows.long()]
+    state.a_rows = rows
+    return state
+
+
+def bulk_build_oneshot(x, cfg, gen: torch.Generator, capacity: Optional[int] = None,
+                       device=None, stats: Optional[dict] = None):
+    """One-shot HNSW construction from dense products, no beam loops.
+    Returns (state, capacity, levels_cap).
+
+    The base layer is the cluster-kNN graph (knn_graph.build_knn_graph at
+    degree M0 with cfg's kc_per_view, prune_cap, block_topk and
+    build_kmeans_iters: with block_topk="pallas" its block scoring runs
+    kernel D); each upper layer is a kNN graph over the nodes reaching it.
+    Capacity rounds up to a multiple of build_batch, as in JAX. x is numpy
+    (uploaded to `device`, None: "cuda") or a tensor (used on its device).
+    `stats`, if given, receives the base-layer graph's geometry (knn_graph)
+    and, with ZVDB_BUILD_TRACE=1, the stages' seconds under "stages" (a sync
+    before each mark)."""
+    from .flat import resolve_device
+    from .hnsw import init_state, max_level_for, torch_precision
+    from .knn_graph import build_knn_graph
+
+    trace = os.environ.get("ZVDB_BUILD_TRACE", "") not in ("", "0")
+    stats = {} if stats is None else stats
+    n = x.shape[0]
+    bsz = min(cfg.build_batch, max(n, 1))
+    cap_min = -(-max(n, 1) // bsz) * bsz
+    cap = max(capacity, cap_min) if capacity is not None else cap_min
+    levels_cap = cfg.max_level if cfg.max_level is not None else max_level_for(cap, cfg.m)
+    on_device = isinstance(x, torch.Tensor)
+    dev = x.device if on_device else resolve_device(device)
+    state = init_state(cap, cfg, levels_cap, dev)
+    if n == 0:
+        return state, cap, levels_cap
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        if trace:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            marks.append((name, time.perf_counter()))
+
+    if on_device:
+        xs = x.float()
+        if cfg.metric == "cosine":
+            xs = xs / torch.clamp(torch.linalg.norm(xs, dim=1, keepdim=True), min=1e-12)
+        amax = float(xs.abs().max()) if cfg.dtype == "int8" else 1.0
+    else:
+        xs = np.asarray(x, np.float32)
+        if cfg.metric == "cosine":   # the JAX package's host normalization, bit for bit
+            xs = xs / np.maximum(np.linalg.norm(xs, axis=1, keepdims=True), 1e-12)
+        amax = float(np.abs(xs).max()) if cfg.dtype == "int8" else 1.0
+        xs = torch.from_numpy(np.ascontiguousarray(xs)).to(dev)
+    if cfg.dtype == "int8":
+        state.q_scale = float(np.float32(max(amax, 1e-12) / 127.0))
+    prec = torch_precision(cfg.precision if cfg.precision != "default" else "high")
+    levels = sample_levels(gen, n, cfg.m, levels_cap, cfg.ml)
+
+    # ---- ingest
+    if cfg.dtype == "int8":
+        stored, norms = D.quantize_corpus_global(xs, cfg.metric, state.q_scale)
+    else:
+        stored, norms = D.preprocess_corpus(xs, cfg.metric, cfg.storage_dtype)
+    state.vectors[:n] = stored
+    state.norms[:n] = norms
+    state.levels[:n] = torch.from_numpy(levels).to(dev)
+    state.ext_ids[:n] = torch.arange(n, dtype=torch.int32, device=dev)
+    del xs, stored, norms
+    # the graph is built over what the index searches: the dequantized rows
+    xj = state.vectors[:n] if cfg.dtype == "float32" else \
+        state.vectors[:n].float() * state.q_scale
+    mark("ingest")
+
+    # ---- base layer
+    nbrs, dists, *_ = build_knn_graph(
+        xj, cfg.base_degree, gen, metric=cfg.metric, alpha=cfg.alpha, precision=prec,
+        kc_per_view=cfg.kc_per_view, prune_cap=cfg.prune_cap, block_topk=cfg.block_topk,
+        kmeans_iters=cfg.build_kmeans_iters, stats=stats)
+    state.nbr0[:n] = nbrs[:n]
+    state.dist0[:n] = dists[:n]
+    del nbrs, dists
+    mark("base")
+
+    # ---- upper layers
+    for ell in range(1, levels_cap + 1):
+        rows = np.nonzero(levels >= ell)[0]
+        if rows.size < 2:
+            break
+        glob, gd = _subset_knn_layer(xj, rows, cfg.m, cfg.alpha, cfg.metric, gen)
+        rows_t = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+        state.nbrU[ell - 1, rows_t] = glob
+        state.distU[ell - 1, rows_t] = gd
+    del xj
+    state.entry = int(np.argmax(levels))
+    state.max_level = int(levels.max())
+    state.n = n
+    mark("upper")
+    _attach_anchors(state, n, gen)
+    mark("anchors")
+    if cfg.diverse_rows:
+        reorder_rows_diverse(state, cfg)
+    mark("reorder")
+    if trace:
+        stages = {name: t1 - t0 for (_, t0), (name, t1) in zip(marks, marks[1:])}
+        stats["stages"] = stages
+        print(f"[hnsw oneshot n={n}] total={marks[-1][1] - marks[0][1]:.2f}s  "
+              + "  ".join(f"{k}={v:.2f}s" for k, v in stages.items()), flush=True)
+    return state, cap, levels_cap

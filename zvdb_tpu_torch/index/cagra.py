@@ -36,7 +36,7 @@ from ..utils.filter_policy import resolve_filter_mode
 from ..utils.masks import allowed_mask
 from .build import _reverse_pass, select_neighbors
 from .flat import masked_exact_search, resolve_device, tensor_from_numpy
-from .hnsw import beam_layer_fn
+from .hnsw import _bdot, _f32, beam_layer_fn
 from .knn_graph import VecStore, build_knn_graph
 
 _INF = float("inf")
@@ -149,16 +149,6 @@ class _SearchArrays:
     n: int
     q_scale: float
     dead: Optional[torch.Tensor] = None
-
-
-def _f32(v) -> float:
-    return float(np.float32(v))
-
-
-def _bdot(q: torch.Tensor, rows: torch.Tensor, precision: Optional[str]) -> torch.Tensor:
-    """q [B, D] . rows [B, C, D] -> [B, C] f32 at `precision`."""
-    return D._sum_products(D._operand_pairs(q, rows, precision),
-                           lambda a, b: torch.einsum("bd,bcd->bc", a, b))
 
 
 def _pick_anchor_rows(gen: torch.Generator, n: int, n_anchors: int, device) -> torch.Tensor:

@@ -487,12 +487,10 @@ def _build_steps(
             bp_np, bo_np, _dropped = _pack_blocks(assign_np, c, bcap)
             bp, bo = torch.from_numpy(bp_np).to(dev), torch.from_numpy(bo_np).to(dev)
         mark(f"p{p}:host-pack")
-        # chunks of cc blocks keep the [cc, B, B] score work ~2^25 entries
+        # chunks of cc blocks keep the [cc, B, B] score work ~2^25 entries;
+        # the last chunk holds what is left (JAX pads it to cc empty blocks
+        # for a static shape, which at a small n means thousands of them)
         c_blocks = bp.shape[0]
-        pad_rows = (-c_blocks) % cc
-        if pad_rows:
-            bp = torch.cat([bp, bp.new_full((pad_rows, bcap), -1)])
-            bo = torch.cat([bo, bo.new_zeros((pad_rows, bcap))])
         stats.update(c=c, bcap=bcap, cc=cc, first_chunk=bp[:cc].clone())
         stats["c_blocks"].append(c_blocks)
         for lo in range(0, c_blocks, cc):

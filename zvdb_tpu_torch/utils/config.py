@@ -2,17 +2,115 @@
 
 Field names, defaults and validation match zvdb_tpu/utils/config.py, so the
 `dataclasses.asdict(cfg)` JSON that either package writes into a save file
-loads in the other. Ported so far: the flat and the PQ engines' configs.
+loads in the other. Ported so far: the flat, PQ and HNSW engines' configs
+and the HNSW search knobs (SearchConfig).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 Metric = str  # "l2" | "dot" | "cosine"
 
 _VALID_METRICS = ("l2", "dot", "cosine")
+
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+@dataclasses.dataclass(frozen=True)
+class HNSWConfig:
+    """Parameters of the HNSW engine (index/hnsw.py, index/build.py)."""
+
+    dim: int
+    m: int = 16                    # max neighbors per node per upper layer
+    ef_construction: int = 100     # build-time beam width (the batched build's)
+    metric: Metric = "l2"
+    # Degree of the base layer; canonical HNSW uses 2*M. None -> 2*m.
+    m0: Optional[int] = None
+    # Level sampling: level = floor(-ln(U) * mL), mL = 1/ln(m) unless set.
+    ml: Optional[float] = None
+    # Hard cap on hierarchy height. None -> derived from capacity at build time.
+    max_level: Optional[int] = None
+    # Diversity pruning relaxation (alpha >= 1.0; 1.0 = strict RNG rule).
+    alpha: float = 1.0
+    # Storage dtype for vectors: float32 | bfloat16 | int8 (per-tensor
+    # symmetric codes and one dequant scale, HNSWState.q_scale).
+    dtype: str = "float32"
+    # Build batch size; the one-shot build rounds capacity up to a multiple.
+    build_batch: int = 1024
+    # Beam width of the batched build's upper-layer candidate searches.
+    ef_construction_upper: int = 32
+    # Precision of the products, by the JAX package's names: "high" (bf16x3
+    # split), "float32" (plain f32, the port's "highest"), "default" (bf16
+    # inputs; the build and the filtered scan take "high" for it).
+    precision: str = "high"
+    # The batched build's beam expansion width.
+    build_expand: int = 8
+    # Cap on the candidate pool entering the batched build's pruning. 0 = none.
+    select_cap: int = 0
+    # Reorder base-layer rows diversity-first after a bulk build, so a
+    # truncated-degree search (SearchConfig.search_degree) reads a diverse
+    # subgraph instead of the nearest (intra-cluster) edges only.
+    diverse_rows: bool = True
+    # Bulk-build strategy: "oneshot" (cluster-kNN base layer, kNN graphs over
+    # the upper layers' nodes), "batched" (frozen-prefix beam batches, with
+    # mid-build checkpoints), "auto" (oneshot unless a checkpoint is asked for).
+    build_mode: str = "auto"
+    # The batched build's beam at every upper layer (else greedy descent).
+    upper_beam: bool = False
+    # One-shot build knobs (knn_graph.build_knn_graph): candidates per
+    # clustering view, the merged-pool cap entering the prune, the per-block
+    # top-k ("approx" is TPU hardware top-k, exact here; "exact"; "binfold";
+    # "pallas": the block scorer kernel) and the Lloyd iterations.
+    kc_per_view: int = 16
+    prune_cap: int = 64
+    block_topk: str = "approx"
+    build_kmeans_iters: int = 3
+
+    def __post_init__(self):
+        if self.metric not in _VALID_METRICS:
+            raise ValueError(f"metric must be one of {_VALID_METRICS}, got {self.metric!r}")
+        if self.dim <= 0:
+            raise ValueError("dim must be positive")
+        if self.m < 2:
+            raise ValueError("m must be >= 2")
+
+    @property
+    def base_degree(self) -> int:
+        return self.m0 if self.m0 is not None else 2 * self.m
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return _STORAGE[self.dtype]
+
+    @property
+    def packed(self) -> bool:
+        """One-gather packed (vector | squared norm) search layout: l2 + f32
+        only (bf16 would round the norm column; int8 codes cannot carry it)."""
+        return self.metric == "l2" and self.dtype == "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """HNSW search-time knobs."""
+
+    ef_search: int = 64
+    # Beam entries expanded per hop.
+    expand: int = 8
+    # Hops of the layer-0 beam; None -> ef/expand + 8 (hnsw.beam_layer_fn).
+    max_iters: Optional[int] = None
+    # Max greedy hops per upper layer.
+    max_upper_iters: int = 32
+    # Expand only the first `search_degree` neighbors of a row (rows are
+    # diversity-first with HNSWConfig.diverse_rows); None = the full row.
+    search_degree: Optional[int] = 24
+    # Exact in-hop candidate dedupe; results are deduped either way.
+    dedupe_candidates: bool = True
+    # Anchor rows unioned into the layer-0 beam seeds (one [B, A] product
+    # against the index's anchor table); 0 = descent-only seeding.
+    seed_anchors: int = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +164,7 @@ class FlatConfig:
     @property
     def storage_dtype(self) -> torch.dtype:
         # int8: symmetric per-vector quantized codes + f32 scales (state.scales)
-        return {
-            "float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8,
-        }[self.dtype]
+        return _STORAGE[self.dtype]
 
 
 @dataclasses.dataclass(frozen=True)

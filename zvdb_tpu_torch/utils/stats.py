@@ -5,7 +5,8 @@ vectors (reference benchmarks/benchmark.md:121-144) without ever measuring it;
 these helpers report the actual numbers for any engine state.
 
 The port's states are dataclasses of tensors with a host-int `n` (and, for
-CAGRA, a host-float `q_scale`) where JAX keeps device scalars. Each such host
+CAGRA and HNSW, a host-float `q_scale`; HNSW's `entry` and `max_level` are
+host ints too) where JAX keeps device scalars. Each such host
 scalar counts 4 bytes, as JAX's int32 / f32 scalars do, so the totals agree.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ def _state_bytes(state) -> Dict[str, int]:
         if isinstance(v, torch.Tensor):
             out[field.name] = v.numel() * v.element_size()
         elif isinstance(v, (int, float)):
-            out[field.name] = 4   # JAX's scalar n (int32) or q_scale (f32)
+            out[field.name] = 4   # JAX's int32 / f32 device scalar
         else:
             out[field.name] = 0
     return out
@@ -32,7 +33,7 @@ def _state_bytes(state) -> Dict[str, int]:
 
 def index_stats(index: Any) -> Dict[str, Any]:
     """Engine-agnostic stats: memory by component, overhead vs raw vectors,
-    and (for the graph engine) the degree distribution."""
+    and (for the graph engines) degree and level distributions."""
     st = getattr(index, "state", None)
     if st is None:
         return {"n": len(index), "total_bytes": 0}
@@ -52,10 +53,11 @@ def index_stats(index: Any) -> Dict[str, Any]:
     if raw:
         stats["overhead_vs_raw"] = (total - raw) / max(raw, 1)
 
-    # graph structure (CAGRA nbrs)
-    if hasattr(st, "nbrs"):
+    # graph structure (HNSW nbr0 and levels, CAGRA nbrs)
+    if hasattr(st, "nbr0") or hasattr(st, "nbrs"):
         n = int(st.n)
-        nbr0 = st.nbrs[:n].cpu().numpy()
+        table = st.nbr0 if hasattr(st, "nbr0") else st.nbrs
+        nbr0 = table[:n].cpu().numpy()
         deg = (nbr0 >= 0).sum(axis=1)
         stats["degree"] = {
             "mean": float(deg.mean()) if n else 0.0,
@@ -63,6 +65,11 @@ def index_stats(index: Any) -> Dict[str, Any]:
             "max": int(deg.max()) if n else 0,
             "isolated": int((deg == 0).sum()),
         }
+        if hasattr(st, "levels"):
+            lv = st.levels[:n].cpu().numpy()
+            lv = lv[lv >= 0]
+            stats["levels_hist"] = np.bincount(lv).tolist() if lv.size else []
+            stats["max_level"] = int(st.max_level)
     if hasattr(st, "counts"):  # IVF
         counts = st.counts.cpu().numpy()
         # as in JAX: IVF-PQ's state has no `blocks`, so this raises
