@@ -2135,18 +2135,42 @@ def phase_hnsw_times(ctx: Ctx, idx, x1, q1, gt, ef):
     scorer = TH.make_packed_scorer(idx._packed(), qp, prec)
     reps = 2 if ctx.rehearse else 10
 
-    def descent(early_exit):
+    def descent():
         return TH.descend(st, qp, cfg.metric, idx.levels_cap, max_upper_iters=sc.max_upper_iters,
-                          scorer=scorer, early_exit=early_exit)
+                          scorer=scorer)
 
-    ms = {f"descent (greedy, {'host check after every hop' if e else 'all 32 hops, no sync'})":
-          ctx.time_ms(lambda e=e: descent(e), reps=reps) for e in (True, False)}
-    ep, ep_s = descent(True)
-    ep_fixed, _ = descent(False)
-    if not torch.equal(ep, ep_fixed):
+    def descent_all_hops():
+        """The descent without the per-hop host check: every layer runs all
+        max_upper_iters hops (a query that did not move re-scores its row),
+        timed here against the engine's form."""
+        ep = torch.full((qp.shape[0],), st.entry, dtype=torch.int32, device=dev)
+        ep_s = scorer(ep[:, None])[:, 0]
+        for ell in range(min(idx.levels_cap, st.max_level), 0, -1):
+            nbrs = st.nbrU[ell - 1]
+            for _ in range(sc.max_upper_iters):
+                cand = nbrs[ep.clamp(min=0).long()]
+                best_s, best_i = scorer(cand).min(dim=-1)
+                better = best_s < ep_s
+                ep = torch.where(better, torch.gather(cand, -1, best_i[:, None])[:, 0], ep)
+                ep_s = torch.where(better, best_s, ep_s)
+        return ep, ep_s
+
+    ms = {"descent (greedy, host check after every hop: the engine's)":
+          ctx.time_ms(descent, reps=reps),
+          f"descent (greedy, all {sc.max_upper_iters} hops, no sync)":
+          ctx.time_ms(descent_all_hops, reps=reps)}
+    ep, ep_s = descent()
+    if not torch.equal(ep, descent_all_hops()[0]):
         raise AssertionError("the two greedy forms reached other rows")
     ms["anchor seeds ([B, A] product + top-16)"] = ctx.time_ms(
         lambda: TH.anchor_seeds(st, qp, sc.seed_anchors, cfg.metric, prec), reps=reps)
+    # the anchor product alone, and one bf16 matmul of the same shape beside it
+    ms["anchor product alone ([B, A] pairwise_scores)"] = ctx.time_ms(
+        lambda: D.pairwise_scores(qp, st.anchors, st.a_norms, cfg.metric, precision=prec),
+        reps=reps)
+    qb16, ab16 = qp.bfloat16(), st.anchors.bfloat16()
+    ms["one bf16 torch.matmul, same [B, D] x [D, A] shape"] = ctx.time_ms(
+        lambda: torch.matmul(qb16, ab16.T), reps=reps)
     a_rows, a_s = TH.anchor_seeds(st, qp, sc.seed_anchors, cfg.metric, prec)
     seeds, seed_s = torch.cat([ep[:, None], a_rows], 1), torch.cat([ep_s[:, None], a_s], 1)
     ms[f"beam (ef={ef})"] = ctx.time_ms(lambda: TH.beam_layer_fn(
@@ -2157,8 +2181,11 @@ def phase_hnsw_times(ctx: Ctx, idx, x1, q1, gt, ef):
     for name, t in ms.items():
         ctx.report(f"hnsw_1m ms a batch of {ctx.batch}: {name}", t)
     t_exit, t_fixed = list(ms.values())[:2]
-    ctx.report("hnsw_1m greedy form", "the search checks after every hop; faster here: "
-               f"{'the host check' if t_exit <= t_fixed else 'all hops'}")
+    ctx.report("hnsw_1m greedy forms, all hops / host check", t_fixed / t_exit)
+    ctx.report(f"hnsw_1m anchor product ([{qp.shape[0]}, {st.anchors.shape[0]}]) / one bf16 "
+               "matmul of its shape",
+               ms["anchor product alone ([B, A] pairwise_scores)"]
+               / ms["one bf16 torch.matmul, same [B, D] x [D, A] shape"])
     profile_search(ctx, idx, q1, label="hnsw_1m", search_kwargs=kw)
 
     # tombstones: remove 1% of ids; none may come back

@@ -171,11 +171,9 @@ def test_descend_matches_jax(corpus, metric):
     qt = TD.preprocess_queries(torch.from_numpy(q), metric)
     with jax.default_matmul_precision("float32"):
         jep, jes = JH.descend(jidx.state, qj, metric, jidx.levels_cap)
-    for early_exit in (True, False):
-        tep, tes = TH.descend(tidx.state, qt, metric, tidx.levels_cap, precision="highest",
-                              early_exit=early_exit)
-        np.testing.assert_array_equal(tep.numpy(), np.asarray(jep))
-        np.testing.assert_allclose(tes.numpy(), np.asarray(jes), **TOL)
+    tep, tes = TH.descend(tidx.state, qt, metric, tidx.levels_cap, precision="highest")
+    np.testing.assert_array_equal(tep.numpy(), np.asarray(jep))
+    np.testing.assert_allclose(tes.numpy(), np.asarray(jes), **TOL)
     if metric == "l2":   # the packed one-gather scorer the search uses for l2 + f32
         table = torch.cat([tidx.state.vectors, tidx.state.norms[:, None]], dim=1)
         scorer = TH.make_packed_scorer(table, qt, "highest")

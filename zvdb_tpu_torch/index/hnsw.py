@@ -210,14 +210,12 @@ def make_packed_scorer(table: torch.Tensor, qp: torch.Tensor, precision: Optiona
 
 
 def _greedy_layer_fn(score_rows, ep: torch.Tensor, ep_score: torch.Tensor, nbrs: torch.Tensor,
-                     max_iters: int, early_exit: bool = True):
+                     max_iters: int):
     """Batched greedy walk: move each query to its best neighbor until no
-    query improves, at most max_iters hops. early_exit reads that on the
-    host after every hop (a device sync), as JAX's while_loop stops; without
-    it all max_iters hops run, with the same result (a query that did not
-    move re-scores its row) and no host read, the form a captured graph of
-    the search would need. The search takes early_exit: 6x faster at
-    hnsw_1m on an H100 (PERF.md §6); chip_smoke.py times both."""
+    query improves, at most max_iters hops. Whether any query moved is read
+    on the host after every hop (a device sync), as JAX's while_loop stops.
+    Running all max_iters hops without that read gives the same result but
+    measured 4.7-7.1x slower at hnsw_1m on an H100 (PERF.md §6)."""
     for _ in range(max_iters):
         cand = nbrs[ep.clamp(min=0).long()]                   # [B, M]
         s = score_rows(cand)
@@ -226,16 +224,9 @@ def _greedy_layer_fn(score_rows, ep: torch.Tensor, ep_score: torch.Tensor, nbrs:
         better = best_s < ep_score
         ep = torch.where(better, best_row, ep)
         ep_score = torch.where(better, best_s, ep_score)
-        if early_exit and not bool(better.any()):
+        if not bool(better.any()):
             break
     return ep, ep_score
-
-
-def _greedy_layer(state, q, ep, ep_score, nbrs, metric, max_iters, precision=None,
-                  early_exit: bool = True):
-    """_greedy_layer_fn with the HNSW state scorer."""
-    return _greedy_layer_fn(make_scorer(state, q, metric, precision), ep, ep_score, nbrs,
-                            max_iters, early_exit)
 
 
 # ---------------------------------------------------------------------------
@@ -327,29 +318,18 @@ def beam_layer_fn(
     return beam_s, beam_r
 
 
-def beam_layer(state: HNSWState, q, seed_rows, seed_scores, nbrs, ef: int, metric: str,
-               expand: int = 1, max_iters: Optional[int] = None, limit_n: Optional[int] = None,
-               use_degree: Optional[int] = None, dedupe_candidates: bool = True,
-               precision: Optional[str] = None):
-    """beam_layer_fn with the HNSW state scorer."""
-    return beam_layer_fn(make_scorer(state, q, metric, precision), seed_rows, seed_scores, nbrs,
-                         ef, expand=expand, max_iters=max_iters, limit_n=limit_n,
-                         use_degree=use_degree, dedupe_candidates=dedupe_candidates)
-
-
 # ---------------------------------------------------------------------------
 # full hierarchical search
 
 
 def descend(state: HNSWState, q: torch.Tensor, metric: str, levels_cap: int,
-            stop_layer: int = 0, max_upper_iters: int = 32, limit_n: Optional[int] = None,
-            scorer=None, precision: Optional[str] = None, early_exit: bool = True):
+            stop_layer: int = 0, max_upper_iters: int = 32,
+            scorer=None, precision: Optional[str] = None):
     """Greedy-descend from the entry point through the upper layers down to
     `stop_layer + 1`, returning per-query entry rows and scores for
     `stop_layer`. Layers above state.max_level are skipped (a host int, so
     a Python `if` where JAX has a lax.cond). `scorer`: optional row-scoring
-    closure (the packed layout). `limit_n` is accepted for the JAX
-    signature; JAX's descend does not read it either."""
+    closure (the packed layout)."""
     b = q.shape[0]
     if scorer is None:
         scorer = make_scorer(state, q, metric, precision)
@@ -358,7 +338,7 @@ def descend(state: HNSWState, q: torch.Tensor, metric: str, levels_cap: int,
     for ell in range(levels_cap, stop_layer, -1):
         if ell <= state.max_level:
             ep, ep_score = _greedy_layer_fn(scorer, ep, ep_score, state.nbrU[ell - 1],
-                                            max_upper_iters, early_exit)
+                                            max_upper_iters)
     return ep, ep_score
 
 
@@ -453,7 +433,6 @@ class HNSW:
         self.levels_cap = cfg.max_level or max_level_for(max(capacity, 1024), cfg.m)
         self.state: Optional[HNSWState] = None
         self._n_inserted = 0                 # external ids handed out
-        self._anchor_n = 0                   # n at the last anchor snapshot
         # the build's draws (levels, graphs, anchors) advance this generator
         # build after build, as the JAX package splits its key
         self._gen = torch.Generator().manual_seed(seed)
@@ -483,12 +462,10 @@ class HNSW:
         self._dead_rows = None
 
     # -- build ------------------------------------------------------------
-    def build(self, x, sort_by_level: bool = True, checkpoint_path: Optional[str] = None,
-              checkpoint_every: int = 0) -> None:
+    def build(self, x, checkpoint_path: Optional[str] = None) -> None:
         """Bulk-build from a corpus [N, D], replacing the contents: the
         one-shot build (index/build.py:bulk_build_oneshot). x is numpy (one
-        upload) or a tensor (kept on its device; not copied). sort_by_level
-        and checkpoint_every belong to the batched build. With
+        upload) or a tensor (kept on its device; not copied). With
         ZVDB_BUILD_TRACE=1 the build prints its stages' times."""
         from .build import bulk_build_oneshot   # local: build imports this module
 
@@ -513,7 +490,6 @@ class HNSW:
                 return
             self.state, self.capacity, self.levels_cap = bulk_build_oneshot(
                 x, self.cfg, self._gen, device=self.device, stats=self.build_stats)
-            self._anchor_n = x.shape[0]
 
     # -- delete -----------------------------------------------------------
     def _ext_to_rows(self, ext_ids_np: np.ndarray) -> np.ndarray:
@@ -702,7 +678,6 @@ class HNSW:
         idx.capacity = int(idx.state.vectors.shape[0] if capacity is None else capacity)
         idx.levels_cap = int(idx.state.nbrU.shape[0] if levels_cap is None else levels_cap)
         idx._n_inserted = idx.state.n if n_inserted is None else int(n_inserted)
-        idx._anchor_n = idx.state.n
         if dead_ext is not None and len(dead_ext):
             dead_ext = np.asarray(dead_ext, np.int64)
             idx._dead = set(int(i) for i in dead_ext)
