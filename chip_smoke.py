@@ -160,12 +160,38 @@ Phases, in order; any failure raises and the script exits non-zero:
                   removed (none may come back), a filter on even ids in
                   "scan" (equal to the masked exact search) and "beam"
                   modes, and a save/load round trip of a 100k-row index
-                  (ids equal after load).
+                  (ids equal after load);
+ 23. hnsw insert - the one-shot build over the first 99% of the corpus,
+                  then the last 1% (10,000 rows, external ids = corpus
+                  rows) through insert() in requests of 100: the
+                  build_batch threshold flushes once (two batch steps and
+                  a capacity growth, 991,232 -> 1,982,464), an explicit
+                  flush() traced takes the rest (one batch: its stage
+                  seconds); insert rows/s, each flush's seconds with the
+                  growth apart, peak device memory, recall@10 over all
+                  queries at phase 20's ef beside phase 20's, the recall of
+                  the queries drawn from inserted rows, self-hit@1 of the
+                  inserted rows (>= 0.95), search QPS; no kernel launched
+                  by insert or flush, no isolated node, len == 1M;
+ 24. hnsw batched - the hnsw_1m configuration with build_mode="batched"
+                  over every row on the device, built once and traced:
+                  points/s beside phase 20's one-shot, the stage seconds
+                  summed over the batches (descent, base beam, intra,
+                  base select + reverse, upper layers), levels, peak device
+                  memory, the ef sweep and recall over all queries (>= 0.95
+                  at some ef <= 128); no kernel launched, no isolated node;
+ 25. hnsw checkpoint - at 100k rows, the batched build direct, with a
+                  checkpoint every 4 batches and resumed from it (nbr0
+                  equal in all three), and the one-shot build direct,
+                  with its base-layer checkpoint and resumed (nbr0, nbrU,
+                  a_rows, levels, entry, max_level equal); seconds and
+                  file sizes (written under build/ and deleted).
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -893,27 +919,33 @@ def phase_pq_main(ctx: Ctx, x1, q1, gt):
 
 def profile_search(ctx: Ctx, index, q1, batches: int = 3, label: str = "pq_1m",
                    search_kwargs=APPROX):
-    """Where a search batch's device time goes: torch.profiler over a few
-    batches after a warm one. Kernel time by name, and the device's busy
-    share of the window (the union of kernel intervals over the host wall
-    time of the window, which ends in a sync)."""
+    """Where a search batch's device time goes: profile_calls over a few
+    batches after a warm one."""
     if ctx.device.type != "cuda":
         return
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     qb = [q1[i * ctx.batch:(i + 1) * ctx.batch] for i in range(batches)]
     index.search(qb[0], K, **search_kwargs)
     ctx.sync()
+    profile_calls(ctx, f"{label} search profile ({batches} batches of {ctx.batch})",
+                  [lambda qq=qq: index.search(qq, K, **search_kwargs) for qq in qb], "batch")
+
+
+def profile_calls(ctx: Ctx, label: str, calls, unit: str):
+    """torch.profiler over `calls`, run in turn in a window that ends in a
+    sync: kernel time by name, and the device's busy share of the window
+    (the union of kernel intervals over the host wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for qq in qb:
-            index.search(qq, K, **search_kwargs)
+        for call in calls:
+            call()
         ctx.sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        ctx.report(f"{label} search profile", "no device time in the trace: not measured")
+        ctx.report(label, "no device time in the trace: not measured")
         return
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
@@ -923,11 +955,11 @@ def profile_search(ctx: Ctx, index, q1, batches: int = 3, label: str = "pq_1m",
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
-    ctx.report(f"{label} search profile ({batches} batches of {ctx.batch})",
-               f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-               f"({100 * busy / wall_us:.1f}%), {len(kernels) // batches} kernels/batch")
+    n = len(calls)
+    ctx.report(label, f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+               f"({100 * busy / wall_us:.1f}%), {len(kernels) // n} kernels/{unit}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  {t / 1e3 / batches:9.3f} ms/batch  {c / batches:5.1f}x/batch  {name[:90]}")
+        print(f"  {t / 1e3 / n:9.3f} ms/{unit}  {c / n:5.1f}x/{unit}  {name[:90]}")
 
 
 def phase_pq_times(ctx: Ctx, idx, q1, lut):
@@ -2100,6 +2132,7 @@ def phase_hnsw_main(ctx: Ctx, x1, q1, gt):
     ctx.report("hnsw_1m build points/s (rows already on the device; two builds, then a traced "
                "one)", [ctx.n / s for s in build_s])
     ctx.report("hnsw_1m build seconds, best of the two untraced", min(build_s[:2]))
+    ctx.hnsw_oneshot_s = min(build_s[:2])
 
     # kernel D on the HNSW base layer's own first chunk (the last pass),
     # held against its plain version at the build's precision
@@ -2256,6 +2289,221 @@ def phase_hnsw_times(ctx: Ctx, idx, x1, q1, gt, ef):
                f"{size / 1e6:.1f} MB; ids equal after load")
 
 
+# ---------------------------------------------------------------------------
+# HNSW's write path: insert and flush, the batched build, build checkpoints
+
+
+def hnsw_batched_config(ctx: Ctx):
+    """hnsw_1m with the frozen-prefix batched build (batches of 1024 rows
+    when rehearsing on the CPU: a full batch's [8192, 200, 200] products
+    would fill its memory)."""
+    return dataclasses.replace(hnsw_config(ctx), build_mode="batched",
+                               build_batch=1024 if ctx.rehearse else 8192)
+
+
+def _inserted_query_rows(ctx: Ctx, lo: int):
+    """Which queries make_workload drew from corpus rows >= lo."""
+    return np.random.default_rng(777).integers(0, ctx.n, ctx.nq) >= lo
+
+
+def phase_hnsw_insert(ctx: Ctx, x1, q1, gt, ef, ref_ids):
+    """The one-shot build over all rows but the last 1%, then those rows
+    through insert() in requests of 100 (the build_batch threshold flushes
+    once, growing the capacity) and an explicit flush() for the rest,
+    traced. Their external ids are their corpus rows, so phase 4's truth
+    holds as it is."""
+    from zvdb_tpu_torch import HNSW
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.stats import index_stats
+
+    dev = ctx.device
+    cfg = hnsw_config(ctx)
+    n_ins, req = ctx.n // 100, 100
+    n0 = ctx.n - n_ins
+    idx = HNSW(cfg, seed=3, device=dev)
+    idx.build(torch.from_numpy(x1[:n0]).to(dev))
+    ctx.sync()
+    cap0 = idx.capacity
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    # the main path: inserts, then the last flush; counts read after
+    reset_kernel_counts()
+    before = kernel_counts()
+    flushes = []
+    t0 = time.perf_counter()
+    for lo in range(n0, ctx.n, req):
+        stats, t1 = idx.build_stats, time.perf_counter()
+        idx.insert(x1[lo:lo + req])
+        if idx.build_stats is not stats:   # this request flushed
+            ctx.sync()
+            flushes.append(("threshold", time.perf_counter() - t1, idx.build_stats))
+    os.environ["ZVDB_BUILD_TRACE"] = "1"
+    try:
+        t1 = time.perf_counter()
+        idx.flush()
+        ctx.sync()
+    finally:
+        os.environ.pop("ZVDB_BUILD_TRACE", None)
+    flushes.append(("explicit, traced", time.perf_counter() - t1, idx.build_stats))
+    ins_s = time.perf_counter() - t0
+    after = kernel_counts()
+
+    ctx.report("hnsw_1m insert", f"{n_ins} rows in requests of {req} after a one-shot build "
+               f"over {n0}: {ins_s:.3f} s, {n_ins / ins_s:.1f} rows/s (host clock, first insert "
+               "to a sync after the last flush)")
+    for kind, s, st in flushes:
+        ctx.report(f"hnsw_1m flush ({kind})", f"{s:.4f} s for {st['batches']} batch(es); "
+                   f"capacity growth {st.get('grow_s', 0.0):.4f} s of it")
+    ctx.report("hnsw_1m traced flush stage seconds (one batch)",
+               {k: round(v, 4) for k, v in flushes[-1][2]["stages"].items()})
+    ctx.report("hnsw_1m capacity before / after the inserts", f"{cap0} / {idx.capacity}")
+    if dev.type == "cuda":
+        ctx.report("hnsw_1m insert peak device memory GB (max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    ids = batched_ids(ctx, idx, q1, ef_search=ef)
+    rec = recall_at_k(ids, gt, K)
+    sel = _inserted_query_rows(ctx, n0)
+    ctx.report(f"hnsw_1m recall@10 after the inserts (ef={ef}, all queries)",
+               f"{rec} (phase 20's index: {recall_at_k(ref_ids, gt, K)})")
+    ctx.report(f"hnsw_1m recall@10 of the {int(sel.sum())} queries drawn from inserted rows",
+               recall_at_k(ids[sel], gt[sel], K))
+    self_ids = batched_ids(ctx, idx, x1[n0:], ef_search=ef)[:, 0]
+    hit = float((self_ids == np.arange(n0, ctx.n)).mean())
+    ctx.report(f"hnsw_1m self-hit@1 of the inserted rows (ef={ef})", hit)
+    ctx.report(f"hnsw_1m search QPS after the inserts (ef={ef}, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs={"ef_search": ef}))
+    st = index_stats(idx)
+    ctx.report("hnsw_1m after the inserts", f"n {idx.state.n}, len {len(idx)}, degree "
+               f"{st['degree']}, levels {st['levels_hist']}")
+    if after != before:
+        raise AssertionError(f"insert/flush launched kernels: {before} -> {after}")
+    if hit < 0.95:
+        raise AssertionError(f"self-hit@1 of the inserted rows {hit} < 0.95")
+    if rec < 0.95 and not ctx.rehearse:
+        raise AssertionError(f"recall@10 after the inserts {rec} < 0.95")
+    if st["degree"]["isolated"] or len(idx) != ctx.n:
+        raise AssertionError(f"after the inserts: {st['degree']}, len {len(idx)}")
+
+
+def phase_hnsw_batched(ctx: Ctx, x1, q1, gt):
+    """hnsw_1m built by the batched build over every row on the device,
+    once, traced (a sync at each stage mark beside the descent's one a
+    hop)."""
+    from zvdb_tpu_torch import HNSW
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.stats import index_stats
+
+    dev = ctx.device
+    cfg = hnsw_batched_config(ctx)
+    ctx.report("hnsw_1m batched config", cfg)
+    xd = torch.from_numpy(x1).to(dev)
+    ctx.sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    before = kernel_counts()
+    os.environ["ZVDB_BUILD_TRACE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        idx = HNSW(cfg, seed=0, device=dev)
+        idx.build(xd)
+        ctx.sync()
+        build_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("ZVDB_BUILD_TRACE", None)
+    after = kernel_counts()
+    del xd
+    bs = idx.build_stats
+    ctx.report("hnsw_1m batched build", f"{build_s:.3f} s, {ctx.n / build_s:.1f} points/s over "
+               f"{bs['batches']} batches (phase 20's one-shot: {ctx.n / ctx.hnsw_oneshot_s:.1f} "
+               "points/s)")
+    ctx.report("hnsw_1m batched build stage seconds (summed over the batches)",
+               {k: round(v, 4) for k, v in bs["stages"].items()})
+    if dev.type == "cuda":
+        ctx.report("hnsw_1m batched build peak device memory GB (max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    st = index_stats(idx)
+    ctx.report("hnsw_1m batched levels", f"max_level {st['max_level']}, histogram "
+               f"{st['levels_hist']}, entry row {idx.state.entry}, capacity {idx.capacity}, "
+               f"degree {st['degree']}")
+    nq = min(2048, q1.shape[0])
+    sweep, ef = {}, None
+    for e in EFS:
+        sweep[e] = rec = recall_at_k(batched_ids(ctx, idx, q1[:nq], ef_search=e), gt[:nq], K)
+        if rec >= 0.95:
+            ef = e
+            break
+    if ef is None:
+        ef = 128
+        sweep[ef] = recall_at_k(batched_ids(ctx, idx, q1[:nq], ef_search=ef), gt[:nq], K)
+    rec_all = recall_at_k(batched_ids(ctx, idx, q1, ef_search=ef), gt, K)
+    ctx.report("hnsw_1m batched ef sweep recall@10 (first 2048 queries)", sweep)
+    ctx.report(f"hnsw_1m batched recall@10 (ef={ef}, all queries)", rec_all)
+    # one batch step under the profiler: a flush of the capacity's free rows
+    # (corpus rows + 0.01), so no growth enters the window
+    free = idx.capacity - idx.state.n
+    if dev.type == "cuda" and free:
+        idx.insert(x1[:free] + np.float32(0.01))
+        profile_calls(ctx, f"hnsw_1m batched step profile (one flush of {free} rows, "
+                      "one batch)", [idx.flush], "step")
+    if after != before:
+        raise AssertionError(f"the batched build launched kernels: {before} -> {after}")
+    if st["degree"]["isolated"]:
+        raise AssertionError(f"batched build: {st['degree']}")
+    if sweep[ef] < 0.95 and not ctx.rehearse:
+        raise AssertionError(f"batched build recall@10 {sweep[ef]} < 0.95 up to ef=128")
+
+
+def phase_hnsw_checkpoint(ctx: Ctx, x1):
+    """At 100k rows: the batched build direct, with a checkpoint every 4
+    batches, and resumed from that file (nbr0 equal in all three); the
+    one-shot build direct and resumed from its base-layer checkpoint."""
+    from zvdb_tpu_torch import HNSW
+
+    dev = ctx.device
+    n_small = 5000 if ctx.rehearse else min(100_000, ctx.n)
+    xs = torch.from_numpy(x1[:n_small]).to(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    line = []
+    for mode in ("batched", "oneshot"):
+        cfg = (hnsw_batched_config(ctx) if mode == "batched"
+               else dataclasses.replace(hnsw_config(ctx), build_mode="oneshot"))
+        path = os.path.join(ROOT, "build", f"hnsw_{mode}_ckpt.npz")
+        kw = {"checkpoint_every": 4} if mode == "batched" else {}
+        try:
+            t0 = time.perf_counter()
+            direct = HNSW(cfg, seed=4, device=dev)
+            direct.build(xs)
+            ctx.sync()
+            t_direct = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ck = HNSW(cfg, seed=4, device=dev)
+            ck.build(xs, checkpoint_path=path, **kw)
+            ctx.sync()
+            t_ck = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            res = HNSW.resume_build(path, device=dev)
+            ctx.sync()
+            t_res = time.perf_counter() - t0
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+        fields = (("nbr0",) if mode == "batched"
+                  else ("nbr0", "nbrU", "a_rows", "levels", "entry", "max_level"))
+        for f in fields:
+            a, b, c = (getattr(i.state, f) for i in (direct, ck, res))
+            same = (torch.equal(a, b) and torch.equal(b, c)) if torch.is_tensor(a) else a == b == c
+            if not same:
+                raise AssertionError(f"{mode} build: {f} differs between direct, checkpointed "
+                                     "and resumed")
+        line.append(f"{mode}: direct {t_direct:.3f} s, with checkpoints {t_ck:.3f} s, resumed "
+                    f"{t_res:.3f} s, file {size / 1e6:.1f} MB; {', '.join(fields)} equal")
+        del direct, ck, res
+    ctx.report(f"hnsw {n_small // 1000}k build checkpoints", "; ".join(line))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -2304,6 +2552,11 @@ def main() -> int:
                  max_differ=0.01)
     phase_hnsw_times(ctx, hn_idx, x1, q1, gt, hn_ef)
     del hn_idx
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_hnsw_insert(ctx, x1, q1, gt, hn_ef, hn_ids)
+    phase_hnsw_batched(ctx, x1, q1, gt)
+    phase_hnsw_checkpoint(ctx, x1)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{

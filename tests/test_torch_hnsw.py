@@ -305,7 +305,10 @@ def test_surface_errors(corpus):
         tidx.get([-1])
     assert tidx.get([]).shape == (0, DIM)
     for name in ("insert", "add", "flush", "resume_build"):
-        assert not hasattr(tidx, name)
+        assert callable(getattr(tidx, name))
+    with pytest.raises(ValueError, match="dimension mismatch"):
+        tidx.insert(q[:2, :8])
+    assert len(tidx) == N   # nothing buffered
 
 
 @pytest.mark.parametrize("metric", ["l2", "cosine"])

@@ -304,13 +304,18 @@ def test_block_topk_pallas_on_the_cpu(corpus):
 
 
 def test_build_modes_and_empty(corpus, tmp_path):
+    """build_mode picks the build: "batched" (or "auto" with a checkpoint)
+    the frozen-prefix batches, which give every node a level-descending
+    row order; "oneshot" (or "auto" without one) the one-shot build."""
     x, _ = corpus
     for cfg_kw, kw in ((dict(build_mode="batched"), {}),
                        ({}, dict(checkpoint_path=str(tmp_path / "c.npz")))):
         idx = ZT.HNSW(ZT.HNSWConfig(**cfg_of(**cfg_kw)), device=CPU)
-        with pytest.raises(NotImplementedError, match="queue 1 item 1b"):
-            idx.build(x[:100], **kw)
+        idx.build(x[:100], **kw)
+        assert idx.build_stats["batches"] == 1 and idx.state.n == 100
+        assert (np.diff(idx.state.levels.numpy()[:100]) <= 0).all()
     idx = port_built((x[:50],), build_mode="oneshot")
+    assert "batches" not in idx.build_stats
     assert idx.state.n == 50 and len(idx) == 50
     idx.build(np.zeros((0, DIM), np.float32))
     assert idx.state is None and len(idx) == 0 and idx.capacity == 0

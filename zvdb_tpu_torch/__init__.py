@@ -2,9 +2,10 @@
 
 The JAX package `zvdb_tpu` stays the reference; this package imports none of
 it and no JAX. Ported so far: the flat, PQ, IVF-PQ, CAGRA and HNSW engines
-(HNSW: the one-shot build, search and persistence; not insert yet), the
-server in front of them, the engine router, and the host tools (bench
-harness, datasets and native loader, stats, profiling).
+(HNSW whole: insert and flush, the one-shot and batched builds with their
+checkpoints, search, persistence), the server in front of them, the engine
+router, and the host tools (bench harness, datasets and native loader,
+stats, profiling).
 
     from zvdb_tpu_torch import (HNSW, CagraConfig, CagraIndex, FlatConfig, FlatIndex,
                                 HNSWConfig, HNSWState, IVFPQConfig, IVFPQIndex,

@@ -26,9 +26,20 @@ Differences from the JAX package, by design:
     hop, as JAX's while_loop stops (a device sync per hop; see
     _greedy_layer_fn for the unsynced form);
   * `beam_layer_fn` runs all max_iters hops (see its docstring);
-  * the build draws from a torch.Generator seeded from HNSW(seed=...), so
-    one seed builds a different graph in each package; `HNSW.from_numpy`
-    and `load` carry a JAX-built state across.
+  * the batched build's bookkeeping (levels, valid rows, entry promotion,
+    max_level, n) is host numpy, so a skipped upper layer is a Python `if`;
+    its greedy descent skips the layers above the prefix's max_level,
+    where no edge exists and JAX's walk does not move;
+  * the builds and flushes draw from a torch.Generator seeded from
+    HNSW(seed=...), so one seed builds a different graph in each package;
+    `HNSW.from_numpy`, `load` and `resume_build` carry a JAX-built state
+    across;
+  * a flush seeds each base beam with the top SearchConfig.seed_anchors
+    anchors beside the descent's row, as search does (JAX: the descent
+    alone; 0 gives JAX's); a bulk build has no anchors until its end;
+  * a flush that builds from no state sets the index's levels_cap to the
+    state's height (JAX keeps the one __init__ derived, which a later
+    growth then cannot copy into when the two differ).
 Entry points take `device=None`, which means "cuda"; without a CUDA device
 they raise unless the caller asks for "cpu".
 """
@@ -229,6 +240,14 @@ def _greedy_layer_fn(score_rows, ep: torch.Tensor, ep_score: torch.Tensor, nbrs:
     return ep, ep_score
 
 
+def _greedy_layer(state: HNSWState, q: torch.Tensor, ep: torch.Tensor, ep_score: torch.Tensor,
+                  nbrs: torch.Tensor, metric: str, max_iters: int,
+                  precision: Optional[str] = None):
+    """_greedy_layer_fn with the state scorer (the batched build's descent)."""
+    return _greedy_layer_fn(make_scorer(state, q, metric, precision), ep, ep_score, nbrs,
+                            max_iters)
+
+
 # ---------------------------------------------------------------------------
 # beam search over one layer
 
@@ -316,6 +335,15 @@ def beam_layer_fn(
         # done queries keep everything expanded, so they do no further work
         expanded = torch.gather(all_e, -1, top) | (beam_r < 0) | done[:, None]
     return beam_s, beam_r
+
+
+def beam_layer(state: HNSWState, q: torch.Tensor, seed_rows: torch.Tensor,
+               seed_scores: torch.Tensor, nbrs: torch.Tensor, ef: int, metric: str,
+               expand: int = 1, limit_n: Optional[int] = None,
+               precision: Optional[str] = None):
+    """beam_layer_fn with the state scorer (the batched build's frozen-prefix beams)."""
+    return beam_layer_fn(make_scorer(state, q, metric, precision), seed_rows, seed_scores, nbrs,
+                         ef, expand=expand, limit_n=limit_n)
 
 
 # ---------------------------------------------------------------------------
@@ -417,12 +445,10 @@ def search_state_impl(
 
 
 class HNSW:
-    """HNSW index: build (one-shot), search with allowed=, remove/compact,
-    get, save/load. Host-side mutation is guarded by a lock.
-
-    Not ported yet (ROADMAP queue 1 item 1b): insert/add/flush, the batched
-    build (build_mode="batched") and build checkpoints (checkpoint_path,
-    resume_build)."""
+    """HNSW index: insert/add (buffered on the host, flushed through the
+    batched build step), build (one-shot or batched, with crash
+    checkpoints), resume_build, search with allowed=, remove/compact, get,
+    save/load. Host-side mutation and search share one lock."""
 
     def __init__(self, cfg: HNSWConfig, search_cfg: SearchConfig = SearchConfig(),
                  capacity: int = 0, seed: int = 0, device=None):
@@ -432,15 +458,17 @@ class HNSW:
         self.capacity = int(capacity)
         self.levels_cap = cfg.max_level or max_level_for(max(capacity, 1024), cfg.m)
         self.state: Optional[HNSWState] = None
+        self._pending: list[np.ndarray] = []   # the host-side insert buffer
         self._n_inserted = 0                 # external ids handed out
-        # the build's draws (levels, graphs, anchors) advance this generator
-        # build after build, as the JAX package splits its key
+        self._anchor_n = 0                   # n at the last anchor sample
+        # the builds' and flushes' draws (levels, graphs, anchors) advance
+        # this generator one after another, as the JAX package splits its key
         self._gen = torch.Generator().manual_seed(seed)
         self._lock = threading.RLock()
         self._dead: set[int] = set()         # tombstoned EXTERNAL ids
         self._dead_rows: Optional[torch.Tensor] = None   # [cap+1] bool by row
         self._packed_table: Optional[torch.Tensor] = None   # derived, not saved
-        self.build_stats: dict = {}          # the last build's geometry and stages
+        self.build_stats: dict = {}          # the last build's or flush's geometry and stages
         if capacity:
             self.state = init_state(self.capacity, cfg, self.levels_cap, self.device)
 
@@ -448,7 +476,7 @@ class HNSW:
     def __len__(self) -> int:
         with self._lock:
             n = 0 if self.state is None else self.state.n
-            return n - len(self._dead)
+            return n + sum(p.shape[0] for p in self._pending) - len(self._dead)
 
     @property
     def dim(self) -> int:
@@ -461,20 +489,84 @@ class HNSW:
         self._dead = set()
         self._dead_rows = None
 
+    # -- mutation ---------------------------------------------------------
+    def insert(self, x) -> None:
+        """Insert one vector [D] or a batch [B, D] (numpy, a list or a
+        tensor). The rows are copied and buffered on the host; the graph
+        grows in bulk at the next flush, which comes once build_batch rows
+        wait, or at the next search, get, remove, compact or save."""
+        if isinstance(x, torch.Tensor):
+            x = x.detach().to("cpu", torch.float32).numpy().copy()
+        else:
+            x = np.array(x, dtype=np.float32, copy=True)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.shape[-1] != self.cfg.dim:
+            raise ValueError(f"dimension mismatch: index dim {self.cfg.dim}, got {x.shape[-1]}")
+        with self._lock:
+            self._pending.append(x)
+            self._n_inserted += x.shape[0]
+            if sum(p.shape[0] for p in self._pending) >= self.cfg.build_batch:
+                self._flush_locked()
+
+    add = insert
+
+    def flush(self) -> None:
+        """Insert every buffered row into the graph now."""
+        with self._lock:
+            self._flush_locked()
+
+    def _flush_locked(self) -> None:
+        """The buffered rows through build.extend_graph, in arrival order,
+        each base beam seeded as search seeds it: the descent's row and the
+        top search_cfg.seed_anchors anchors (JAX: the descent alone). The
+        packed table is derived from the rows, so it goes; tombstones stay,
+        their mask padded to a grown capacity. Once n doubles past the last
+        anchor sample, the anchors are drawn again over every row."""
+        if not self._pending:
+            return
+        from .build import _attach_anchors, extend_graph
+
+        x = np.concatenate(self._pending, axis=0)
+        self._pending = []
+        self.build_stats = {}
+        self.state, self.capacity = extend_graph(
+            self.state, self.capacity, self.levels_cap, x, self.cfg, self._gen,
+            ext_id_start=self._n_inserted - x.shape[0], device=self.device,
+            stats=self.build_stats, seed_anchors=self.search_cfg.seed_anchors)
+        # a flush from nothing builds at its own height
+        self.levels_cap = self.state.nbrU.shape[0]
+        self._packed_table = None
+        cap1 = self.state.nbr0.shape[0]
+        if self._dead_rows is not None and self._dead_rows.shape[0] < cap1:
+            grown = torch.zeros(cap1, dtype=torch.bool, device=self.device)
+            grown[:self._dead_rows.shape[0]] = self._dead_rows
+            self._dead_rows = grown
+        n_now = self.state.n
+        if self._anchor_n == 0:
+            self._anchor_n = n_now   # the first flush built from nothing
+        elif n_now >= 2 * self._anchor_n:
+            _attach_anchors(self.state, n_now, self._gen)
+            self._anchor_n = n_now
+
     # -- build ------------------------------------------------------------
-    def build(self, x, checkpoint_path: Optional[str] = None) -> None:
-        """Bulk-build from a corpus [N, D], replacing the contents: the
-        one-shot build (index/build.py:bulk_build_oneshot). x is numpy (one
-        upload) or a tensor (kept on its device; not copied). With
-        ZVDB_BUILD_TRACE=1 the build prints its stages' times."""
-        from .build import bulk_build_oneshot   # local: build imports this module
+    def build(self, x, sort_by_level: bool = True, checkpoint_path: Optional[str] = None,
+              checkpoint_every: int = 0) -> None:
+        """Bulk-build from a corpus [N, D], replacing the contents (buffered
+        inserts included). x is numpy (uploaded) or a tensor (kept on its
+        device; not copied).
+
+        build_mode "oneshot", or "auto" without a checkpoint_path: the
+        one-shot build (index/build.py:bulk_build_oneshot); a checkpoint_path
+        snapshots it once its base layer is built. "batched", or "auto" with
+        a checkpoint_path: the frozen-prefix batches (bulk_build), rows in
+        level-descending order unless sort_by_level=False, a snapshot every
+        checkpoint_every batches. HNSW.resume_build(path) finishes either.
+        With ZVDB_BUILD_TRACE=1 the build prints its stages' times."""
+        from .build import bulk_build, bulk_build_oneshot   # local: build imports this module
 
         mode = self.cfg.build_mode
-        if mode == "batched" or checkpoint_path:
-            raise NotImplementedError(
-                "the batched HNSW build and build checkpoints are not ported yet "
-                "(ROADMAP queue 1 item 1b); use build_mode='auto' or 'oneshot' "
-                "without checkpoint_path")
+        oneshot = mode == "oneshot" or (mode == "auto" and not checkpoint_path)
         if isinstance(x, torch.Tensor):
             x = x.to(device=self.device, dtype=torch.float32)
         else:
@@ -484,12 +576,38 @@ class HNSW:
         with self._lock:
             self.build_stats = {}
             self._set_state(None)
-            self._n_inserted = x.shape[0]
+            self._pending = []
+            self._n_inserted = self._anchor_n = x.shape[0]
             if x.shape[0] == 0:   # empty corpus -> empty index
                 self.capacity = 0
                 return
-            self.state, self.capacity, self.levels_cap = bulk_build_oneshot(
-                x, self.cfg, self._gen, device=self.device, stats=self.build_stats)
+            if oneshot:
+                self.state, self.capacity, self.levels_cap = bulk_build_oneshot(
+                    x, self.cfg, self._gen, device=self.device, stats=self.build_stats,
+                    checkpoint_path=checkpoint_path)
+            else:
+                self.state, self.capacity, self.levels_cap = bulk_build(
+                    x, self.cfg, self._gen, sort_by_level=sort_by_level,
+                    checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+                    device=self.device, stats=self.build_stats)
+
+    @classmethod
+    def resume_build(cls, checkpoint_path: str, device=None) -> "HNSW":
+        """Finish a build from its checkpoint, written by either package:
+        a one-shot snapshot (kind "hnsw_oneshot") reruns the upper layers,
+        anchors and reorder; a batched one runs the remaining batches."""
+        import json
+
+        from .build import resume_build, resume_build_oneshot
+
+        with np.load(checkpoint_path, allow_pickle=False) as z:
+            kind = json.loads(str(z["meta"])).get("kind")
+        resume = resume_build_oneshot if kind == "hnsw_oneshot" else resume_build
+        state, capacity, levels_cap, cfg = resume(checkpoint_path, device=device)
+        idx = cls(cfg, device=device)
+        idx.state, idx.capacity, idx.levels_cap = state, capacity, levels_cap
+        idx._n_inserted = idx._anchor_n = state.n
+        return idx
 
     # -- delete -----------------------------------------------------------
     def _ext_to_rows(self, ext_ids_np: np.ndarray) -> np.ndarray:
@@ -509,6 +627,7 @@ class HNSW:
         if ids.size == 0:
             return 0
         with self._lock:
+            self._flush_locked()
             if (ids < 0).any() or (ids >= self._n_inserted).any():
                 raise IndexError(f"ids must be in [0, {self._n_inserted})")
             new = np.asarray([int(i) for i in ids if int(i) not in self._dead], np.int64)
@@ -528,6 +647,7 @@ class HNSW:
         in former external-id order. Returns the survivors' old external ids
         (new id == position). One one-shot build."""
         with self._lock:
+            self._flush_locked()
             alive = np.ones(self._n_inserted, bool)
             if self._dead:
                 alive[np.fromiter(self._dead, np.int64, len(self._dead))] = False
@@ -572,6 +692,7 @@ class HNSW:
         if filter_mode not in ("auto", "scan", "beam"):
             raise ValueError(f"invalid filter_mode {filter_mode!r}")
         with self._lock:
+            self._flush_locked()
             filter_mode = resolve_filter_mode(filter_mode, allowed, self._n_inserted, alt="beam")
             q = torch.as_tensor(q, dtype=torch.float32, device=self.device)
             squeeze = q.dim() == 1
@@ -624,6 +745,7 @@ class HNSW:
         """Stored vectors for external ids [K] -> [K, D] f32 numpy: exact for
         f32, rounded for bf16, dequantized for int8, normalized for cosine."""
         with self._lock:
+            self._flush_locked()
             ids = np.atleast_1d(np.asarray(ids, np.int64))
             if ids.size == 0 or self.state is None:
                 if ids.size and self.state is None:
@@ -645,6 +767,7 @@ class HNSW:
         from ..io.persist import save_hnsw
 
         with self._lock:
+            self._flush_locked()
             save_hnsw(path, self)
 
     @classmethod
@@ -678,6 +801,7 @@ class HNSW:
         idx.capacity = int(idx.state.vectors.shape[0] if capacity is None else capacity)
         idx.levels_cap = int(idx.state.nbrU.shape[0] if levels_cap is None else levels_cap)
         idx._n_inserted = idx.state.n if n_inserted is None else int(n_inserted)
+        idx._anchor_n = idx.state.n
         if dead_ext is not None and len(dead_ext):
             dead_ext = np.asarray(dead_ext, np.int64)
             idx._dead = set(int(i) for i in dead_ext)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 PRECISIONS = ("highest", "high", "default")
@@ -80,15 +81,17 @@ def preprocess_corpus(x: torch.Tensor, metric: str, dtype=torch.float32):
 
 
 def quantize_corpus_global(x: torch.Tensor, metric: str, scale):
-    """Per-tensor symmetric int8 quantization with a fixed scale. Returns
-    (codes int8, sq_norms f32); norms are of the dequantized codes, so
-    scores are exact squared distances to the stored points."""
+    """Per-tensor symmetric int8 quantization with a fixed scale (an f32
+    value). Returns (codes int8, sq_norms f32); norms are of the dequantized
+    codes, so scores are exact squared distances to the stored points. The
+    norms' scale * scale is an f32 product, as in JAX (a host float product
+    would round once, in double, and differ by an ulp)."""
     xf = x.float()
     if metric == "cosine":
         xf = normalize(xf)
     codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     if metric == "l2":
-        norms = scale * scale * sq_norms(codes.float())
+        norms = float(np.float32(scale) * np.float32(scale)) * sq_norms(codes.float())
     else:
         norms = xf.new_zeros(xf.shape[:-1])
     return codes, norms
