@@ -185,7 +185,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                   equal in all three), and the one-shot build direct,
                   with its base-layer checkpoint and resumed (nbr0, nbrU,
                   a_rows, levels, entry, max_level equal); seconds and
-                  file sizes (written under build/ and deleted).
+                  file sizes (written under build/ and deleted);
+ 26. ivf carry  - a 4,000-row IVF index built on the CPU and carried by
+                  from_numpy onto the card and onto the CPU: ids equal from
+                  both, f32 blocks and int8 + rerank, at B=8 (the pair scan)
+                  and B=512 (the grouped scan); the IVF path runs no kernel,
+                  so this is its device check;
+ 27. ivf main   - the ivf_1m configuration (the bench.py ivf row at 1M:
+                  IVFConfig(dim=128, n_clusters=1024, nprobe=8,
+                  kmeans_iters=4, kmeans_sample=65536), f32 blocks): builds
+                  from host and from device rows (points/s, 2 runs each
+                  after a warm-up, then one traced each), the nprobe sweep
+                  {2, 4, 8} (recall@10, the scan taken, QPS, peak device
+                  memory; the first with recall >= 0.95 is kept; no kernel
+                  launched), the pair and grouped scans held together on
+                  the same probes at each nprobe (the share q_cap drops), a
+                  torch.profiler breakdown, a server, filtered search (1%
+                  and 50% allowlists, scan and probe modes) and search_range
+                  against the flat oracle, and 1% of the rows added to an
+                  index over the rest through the O(new) append (rows/s,
+                  recall, self-hit@1 >= 0.95);
+ 28. ivf int8   - the ivf_1m_int8 configuration (IVFConfig(dim=128,
+                  dtype="int8", rerank=4, kmeans_iters=6), clusters by the
+                  default rule): build, the nprobe sweep {4, 8, 16}, both
+                  scans held together, a profile, 1% removed (none comes
+                  back) and compact, timed;
+ 29. ivf checkpoint + sweep - at 100k rows, the int8 + rerank build direct,
+                  with its plan checkpoint and resumed (every field equal)
+                  and a save/load round trip (ids equal; files under build/
+                  and deleted); then `python -m zvdb_tpu_torch.bench.sweep`
+                  at d=128, 100k points, 10k queries for --engine ivf (k 10,
+                  25, 50, 100), flat and hnsw (k 10), their JSON rows.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -2504,6 +2534,403 @@ def phase_hnsw_checkpoint(ctx: Ctx, x1):
     ctx.report(f"hnsw {n_small // 1000}k build checkpoints", "; ".join(line))
 
 
+IVF_NPROBES = (2, 4, 8)       # the bench.py ivf row's nprobe sweep
+IVF8_NPROBES = (4, 8, 16)
+
+
+def ivf_config(ctx: Ctx):
+    """ivf_1m: the bench.py ivf row's configuration (bench.py:553-620)."""
+    from zvdb_tpu_torch import IVFConfig
+
+    return IVFConfig(dim=ctx.dim, n_clusters=1024, nprobe=8, kmeans_iters=4,
+                     kmeans_sample=65536)
+
+
+def ivf8_config(ctx: Ctx):
+    """ivf_1m_int8: the 10M engine's shape (examples/bench_deep10m.py:80,
+    examples/exp_r3_100m_config.py:63), clusters by the default rule."""
+    from zvdb_tpu_torch import IVFConfig
+
+    return IVFConfig(dim=ctx.dim, dtype="int8", rerank=4, kmeans_iters=6)
+
+
+def _ivf_arrays(st):
+    """An IVFState's fields as numpy, as a save file holds them (bf16 as f32)."""
+    from zvdb_tpu_torch.index.ivf import _STATE_FIELDS
+
+    out = {}
+    for f in _STATE_FIELDS:
+        v = getattr(st, f)
+        out[f] = (np.asarray(v, np.int32) if f == "n"
+                  else (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy())
+    return out
+
+
+def phase_ivf_carry(ctx: Ctx, x1):
+    """26. One small index built on the CPU and carried by from_numpy onto
+    the card and onto the CPU: the same ids from both, f32 blocks and int8 +
+    rerank, at a batch that takes the pair scan and one that takes the
+    grouped scan (the path runs no kernel, so this is its device check)."""
+    from zvdb_tpu_torch import IVFConfig, IVFIndex
+    from zvdb_tpu_torch.index.ivf import use_pair_scan
+
+    n = 4000
+    x = x1[:n]
+    rng = np.random.default_rng(26)
+    lines = []
+    for cfg in (IVFConfig(dim=ctx.dim, n_clusters=64, nprobe=8),
+                IVFConfig(dim=ctx.dim, n_clusters=64, nprobe=8, dtype="int8", rerank=4)):
+        src = IVFIndex(cfg, device="cpu")
+        src.build(x)
+        arrays = _ivf_arrays(src.state)
+        card = IVFIndex.from_numpy(cfg, arrays, device=ctx.device)
+        cpu = IVFIndex.from_numpy(cfg, arrays, device="cpu")
+        c = cpu.state.centroids.shape[0]
+        for b in (8, 512):
+            qq = (x[rng.integers(0, n, b)]
+                  + 0.05 * rng.standard_normal((b, ctx.dim))).astype(np.float32)
+            sc, ic = card.search(qq, K)
+            sp, ip = cpu.search(qq, K)
+            differ = int((ic.cpu() != ip).sum())
+            err = float((sc.cpu() - sp).abs().max())
+            scan = "pair" if use_pair_scan(c, b, cfg.nprobe) else "grouped"
+            lines.append(f"{cfg.dtype}{' + rerank' if cfg.rerank else ''} B={b} ({scan} scan): "
+                         f"{differ} ids differ, max |score diff| {err:.3g}")
+            if differ:
+                raise AssertionError(f"ivf carried index: {lines[-1]}")
+    ctx.report(f"ivf carried {n}-row index, card vs CPU (C={c})", "; ".join(lines))
+
+
+def _compare_scans(ps, pi, gs, gi, live):
+    """The pair and grouped scans' [B, P * kk] outputs on the same probes:
+    on every (query, probe) pair the grouped scan kept, the same kk ids
+    (up to near-ties at the kk-th score) and scores; on a dropped pair no
+    id. Returns (max |score diff|, pairs whose id sets differ, pairs past a
+    near-tie)."""
+    b, p = live.shape
+    ps, pi, gs, gi = (t.reshape(b, p, -1) for t in (ps, pi, gs, gi))
+    ok = live[..., None]
+    fin = torch.isfinite(ps) & torch.isfinite(gs) & ok
+    err = float((ps - gs).abs()[fin].max()) if bool(fin.any()) else 0.0
+    tol = 1e-5 * max(1.0, float(ps[fin].abs().max()) if bool(fin.any()) else 1.0)
+    missing = ok & (pi >= 0) & ~(pi[..., :, None] == gi[..., None, :]).any(-1)
+    bad = missing & ((ps - gs[..., -1:]).abs() > tol)
+    if bool((gi[~live] >= 0).any()):
+        raise AssertionError("the grouped scan returned ids on a dropped probe pair")
+    return err, int(missing.any(-1).sum()), int(bad.any(-1).sum())
+
+
+def ivf_scan_check(ctx: Ctx, idx, q1, p: int, label: str):
+    """Both scans on the first batch's probes at nprobe p, held together;
+    the share of probe pairs the grouped scan's q_cap drops."""
+    from zvdb_tpu_torch.index import ivf as TI
+    from zvdb_tpu_torch.ops import distance as D
+    from zvdb_tpu_torch.ops import topk as T
+
+    cfg, st = idx.cfg, idx.state
+    kk = K * cfg.rerank if cfg.rerank else K
+    qp = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(ctx.device), cfg.metric)
+    b, c = qp.shape[0], st.centroids.shape[0]
+    cs = D.pairwise_scores(qp, st.centroids, st.c_norms, cfg.metric, precision="highest")
+    _, probes = T.smallest_k_dense(cs, p)
+    resid = cfg.dtype == "int8"
+    ps, pi = TI._pair_scan(st, qp, cs, probes, kk, cfg.metric, resid, "highest")
+    gs, gi = TI._grouped_scan(st, qp, cs, probes, kk, cfg.metric, resid, 4.0, "highest")
+    qslot, pslot = TI._slot_pairs(probes, b, p, c, TI.group_q_cap(b, p, c, 4.0))
+    live = torch.zeros((b, p), dtype=torch.bool, device=ctx.device)
+    keep = qslot >= 0
+    live[qslot[keep].long(), pslot[keep].long()] = True
+    err, differ, bad = _compare_scans(ps, pi, gs, gi, live)
+    dropped = 1.0 - float(live.float().mean())
+    ctx.report(f"{label} pair scan vs grouped scan (nprobe={p}, B={b}, kk={kk}, q_cap="
+               f"{qslot.shape[1]})", f"max |score diff| {err:.3g}; {differ} of "
+               f"{int(live.sum())} kept pairs differ in ids, {bad} past a near-tie; "
+               f"{100 * dropped:.3f}% of the {b * p} probe pairs dropped by q_cap")
+    if bad or err > 1e-3:
+        raise AssertionError(f"{label}: the pair and grouped scans disagree")
+
+
+def ivf_sweep(ctx: Ctx, idx, q1, gt, nprobes, label: str):
+    """recall@10, the scan taken, QPS (3 runs) and peak device memory at
+    each nprobe; returns (the first nprobe with recall >= 0.95, else the
+    last, its ids, {nprobe: recall})."""
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.index.ivf import use_pair_scan
+
+    c = idx.state.centroids.shape[0]
+    chosen, recs = None, {}
+    for p in nprobes:
+        if ctx.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ids = batched_ids(ctx, idx, q1, nprobe=p)
+        recs[p] = rec = recall_at_k(ids, gt, K)
+        qps = search_qps(ctx, idx, q1, search_kwargs={"nprobe": p})
+        peak = (f", peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+                if ctx.device.type == "cuda" else "")
+        scan = "pair" if use_pair_scan(c, ctx.batch, p) else "grouped"
+        ctx.report(f"{label} nprobe={p}", f"recall@10 {rec}, the {scan} scan at B={ctx.batch} "
+                   f"(C={c}), QPS (3 runs) {[round(v, 1) for v in qps]}{peak}")
+        if chosen is None and rec >= 0.95:
+            chosen = (p, ids)
+    if chosen is None:
+        ctx.report(f"{label} recall@10 stays below 0.95 over nprobe {nprobes}", recs)
+        chosen = (p, ids)
+    return chosen[0], chosen[1], recs
+
+
+def phase_ivf_main(ctx: Ctx, x1, q1, gt):
+    """27. ivf_1m: builds from host and device rows, the nprobe sweep, both
+    scans held together, a profile, a server, filtered and range search
+    against the flat oracle, and 10,000 rows added through the append."""
+    from zvdb_tpu_torch import FlatConfig, FlatIndex, IVFIndex
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.stats import index_stats
+
+    dev = ctx.device
+    cfg = ivf_config(ctx)
+    ctx.report("ivf_1m config", cfg)
+    xd = torch.from_numpy(x1).to(dev)
+    IVFIndex(cfg, device=dev).build(xd)          # warm-up: first use of every op
+    ctx.sync()
+    pps = {"host": [], "device": []}
+    for src in ("host", "device", "host", "device"):
+        t0 = time.perf_counter()
+        idx = IVFIndex(cfg, device=dev)
+        idx.build(x1 if src == "host" else xd)
+        ctx.sync()
+        pps[src].append(ctx.n / (time.perf_counter() - t0))
+    ctx.report("ivf_1m build points/s (2 runs each after a warm-up; host rows are uploaded "
+               "inside the build)", pps)
+    for src in ("host", "device"):
+        os.environ["ZVDB_BUILD_TRACE"] = "1"
+        try:
+            print(f"  traced build from {src} rows:", flush=True)
+            IVFIndex(cfg, device=dev).build(x1 if src == "host" else xd)
+        finally:
+            os.environ.pop("ZVDB_BUILD_TRACE", None)
+    st = index_stats(idx)
+    ctx.report("ivf_1m index", f"C={st['clusters']['count']} (of {cfg.n_clusters} before the "
+               f"split), cap {st['clusters']['capacity']}, fill max {st['clusters']['fill_max']},"
+               f" pad waste {st['clusters']['pad_waste']:.3f}, state GB "
+               f"{st['total_bytes'] / 1e9:.3f}")
+
+    reset_kernel_counts()
+    np_, ids, _ = ivf_sweep(ctx, idx, q1, gt, IVF_NPROBES, "ivf_1m")
+    launched = kernel_counts()
+    if any(launched.values()):
+        raise AssertionError(f"the IVF search launched kernels: {launched}")
+    ctx.report("ivf_1m kernel launches (search, all nprobes)", "none of A-G")
+    for p in IVF_NPROBES:
+        ivf_scan_check(ctx, idx, q1, p, "ivf_1m")
+    profile_search(ctx, idx, q1, label=f"ivf_1m nprobe={np_}", search_kwargs={"nprobe": np_})
+    phase_server(ctx, idx, q1, ids, label="ivf_1m ", search_kwargs={"nprobe": np_},
+                 max_differ=0.01)
+    ctx.report(f"ivf_1m server QPS (nprobe={np_})",
+               server_qps(ctx, idx, q1, search_kwargs={"nprobe": np_}))
+
+    # filtered and range search against the exact flat oracle
+    oracle = FlatIndex(FlatConfig(dim=ctx.dim, precision="highest", tile_n=262144),
+                       capacity=ctx.n, device=dev)
+    oracle.add(xd)
+    qf = q1[:ctx.batch]
+    rng = np.random.default_rng(27)
+    for name, allow in (("1%", np.sort(rng.choice(ctx.n, ctx.n // 100, replace=False))),
+                        ("50%", np.arange(0, ctx.n, 2))):
+        truth = oracle.search(qf, K, allowed=allow)[1].cpu().numpy()
+        for mode in ("scan", "probe"):
+            ctx.sync()
+            t0 = time.perf_counter()
+            got = idx.search(qf, K, nprobe=np_, allowed=allow, filter_mode=mode)[1].cpu().numpy()
+            dt = time.perf_counter() - t0
+            rec = recall_at_k(got, truth, K)
+            ctx.report(f"ivf_1m filtered {name} {mode} (nprobe={np_}, B={len(qf)})",
+                       f"recall@10 vs the masked truth {rec}, {dt * 1e3:.1f} ms")
+            if not np.isin(got[got >= 0], allow).all():
+                raise AssertionError(f"filtered {name} {mode}: an id outside the allowlist")
+            if mode == "scan" and rec < 0.99:
+                raise AssertionError(f"filtered {name} scan recall {rec} < 0.99 (exact scan)")
+    qr = q1[:256]
+    radius = float(np.median(oracle.search(qr, K)[0].cpu().numpy()[:, -1]))
+    t0 = time.perf_counter()
+    got = idx.search_range(qr, radius, max_results=K)[2].cpu().numpy()
+    dt = time.perf_counter() - t0
+    want = oracle.search_range(qr, radius, max_results=K)[2].cpu().numpy()
+    lo = oracle.search_range(qr, radius * (1 - 1e-5), max_results=K)[2].cpu().numpy()
+    hi = oracle.search_range(qr, radius * (1 + 1e-5), max_results=K)[2].cpu().numpy()
+    ctx.report(f"ivf_1m search_range (256 queries, radius {radius:.4f}, {dt * 1e3:.1f} ms)",
+               f"counts equal to the flat oracle's on {int((got == want).sum())} of 256 "
+               f"(mean count {got.mean():.2f}); all within the oracle's at radius x (1 -+ 1e-5)")
+    if not ((lo <= got) & (got <= hi)).all():
+        raise AssertionError("search_range counts differ from the flat oracle's")
+    del oracle
+
+    # add 1% of the rows to an index over the rest, through the O(new) append
+    n_add = ctx.n // 100
+    n0 = ctx.n - n_add
+    add_idx = IVFIndex(cfg, device=dev)
+    add_idx.build(xd[:n0])
+    ctx.sync()
+    ptr = add_idx.state.blocks.data_ptr()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    add_idx.add(x1[n0:])
+    add_idx.flush()
+    ctx.sync()
+    dt = time.perf_counter() - t0
+    appended = add_idx.state.blocks.data_ptr() == ptr
+    rec = recall_at_k(batched_ids(ctx, add_idx, q1, nprobe=np_), gt, K)
+    hit = float((batched_ids(ctx, add_idx, x1[n0:], nprobe=np_)[:, 0]
+                 == np.arange(n0, ctx.n)).mean())
+    ctx.report(f"ivf_1m add of {n_add} rows after a build over {n0}",
+               f"{dt:.4f} s, {n_add / dt:.1f} rows/s, "
+               f"{'the O(new) append' if appended else 'a repack'}; recall@10 after "
+               f"(nprobe={np_}) {rec}; self-hit@1 of the added rows {hit}")
+    if not appended or any(kernel_counts().values()):
+        raise AssertionError("the add did not take the append, or launched a kernel")
+    if hit < 0.95:
+        raise AssertionError(f"self-hit@1 of the added rows {hit} < 0.95")
+    del add_idx, xd
+    return np_
+
+
+def phase_ivf_int8(ctx: Ctx, x1, q1, gt):
+    """28. ivf_1m_int8: residual codes, the shadow store and the exact
+    rerank; build, the nprobe sweep, both scans held together, remove and
+    compact."""
+    from zvdb_tpu_torch import IVFIndex
+    from zvdb_tpu_torch.utils.stats import index_stats
+
+    dev = ctx.device
+    cfg = ivf8_config(ctx)
+    ctx.report("ivf_1m_int8 config", cfg)
+    xd = torch.from_numpy(x1).to(dev)
+    IVFIndex(cfg, device=dev).build(xd)          # warm-up
+    ctx.sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        idx = IVFIndex(cfg, device=dev)
+        idx.build(xd)
+        ctx.sync()
+        pps.append(ctx.n / (time.perf_counter() - t0))
+    ctx.report("ivf_1m_int8 build points/s (rows on the device, 2 runs after a warm-up)", pps)
+    if dev.type == "cuda":
+        ctx.report("ivf_1m_int8 build peak device memory GB",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    os.environ["ZVDB_BUILD_TRACE"] = "1"
+    try:
+        IVFIndex(cfg, device=dev).build(xd)
+    finally:
+        os.environ.pop("ZVDB_BUILD_TRACE", None)
+    st = index_stats(idx)
+    ctx.report("ivf_1m_int8 index", f"C={st['clusters']['count']}, cap "
+               f"{st['clusters']['capacity']}, fill max {st['clusters']['fill_max']}, shadow "
+               f"rows {idx.state.rerank_vecs.shape[0]}, state GB {st['total_bytes'] / 1e9:.3f} "
+               f"({ {k: round(v / 1e9, 3) for k, v in st['component_bytes'].items()} })")
+    reset_kernel_counts()
+    np_, ids, _ = ivf_sweep(ctx, idx, q1, gt, IVF8_NPROBES, "ivf_1m_int8")
+    if any(kernel_counts().values()):
+        raise AssertionError("the int8 IVF search launched kernels")
+    ivf_scan_check(ctx, idx, q1, np_, "ivf_1m_int8")
+    profile_search(ctx, idx, q1, label=f"ivf_1m_int8 nprobe={np_}",
+                   search_kwargs={"nprobe": np_})
+
+    dead = np.sort(np.random.default_rng(28).choice(ctx.n, ctx.n // 100, replace=False))
+    t0 = time.perf_counter()
+    idx.remove(dead)
+    ctx.sync()
+    t_rm = time.perf_counter() - t0
+    got = batched_ids(ctx, idx, q1, nprobe=np_)
+    if np.isin(got, dead).any():
+        raise AssertionError("a removed id came back")
+    t0 = time.perf_counter()
+    old = idx.compact()
+    ctx.sync()
+    t_cp = time.perf_counter() - t0
+    ctx.report(f"ivf_1m_int8 remove {len(dead)} ids / compact",
+               f"{t_rm:.4f} s / {t_cp:.3f} s; {len(idx)} rows after, none removed returned")
+    if len(idx) != ctx.n - len(dead) or np.isin(old, dead).any():
+        raise AssertionError("compact kept a removed row or lost a live one")
+    del idx, xd
+
+
+def phase_ivf_checkpoint_sweep(ctx: Ctx, x1):
+    """29. At 100k rows: the plan checkpoint resumed equal to the direct
+    build, a save/load round trip with equal ids; then the sweep CLI (the
+    reference protocol at d=128) for the ivf, flat and hnsw engines."""
+    from zvdb_tpu_torch import IVFIndex
+    from zvdb_tpu_torch.index.ivf import _STATE_FIELDS
+
+    dev = ctx.device
+    n_small = 5000 if ctx.rehearse else min(100_000, ctx.n)
+    cfg = ivf8_config(ctx)
+    xs = torch.from_numpy(x1[:n_small]).to(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = os.path.join(ROOT, "build", "ivf_plan.npz")
+    saved = os.path.join(ROOT, "build", "ivf_save.npz")
+    try:
+        t = {}
+        t0 = time.perf_counter()
+        direct = IVFIndex(cfg, device=dev)
+        direct.build(xs)
+        ctx.sync()
+        t["direct"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        IVFIndex(cfg, device=dev).build(xs, checkpoint_path=ckpt)
+        ctx.sync()
+        t["with the plan checkpoint"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = IVFIndex.resume_build(ckpt, device=dev)
+        ctx.sync()
+        t["resumed"] = time.perf_counter() - t0
+        for f in _STATE_FIELDS:
+            a, b = getattr(direct.state, f), getattr(res.state, f)
+            if not (torch.equal(a, b) if torch.is_tensor(a) else a == b):
+                raise AssertionError(f"resumed IVF build: {f} differs from the direct build")
+        t0 = time.perf_counter()
+        direct.save(saved)
+        t["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = IVFIndex.load(saved, device=dev)
+        ctx.sync()
+        t["load"] = time.perf_counter() - t0
+        qq = x1[:ctx.batch:2] + 0.01
+        if not torch.equal(direct.search(qq, K)[1], back.search(qq, K)[1]):
+            raise AssertionError("ids differ after save/load")
+        sizes = {os.path.basename(p): round(os.path.getsize(p) / 1e6, 1) for p in (ckpt, saved)}
+    finally:
+        for p in (ckpt, saved):
+            if os.path.exists(p):
+                os.remove(p)
+    ctx.report(f"ivf {n_small // 1000}k int8 + rerank plan checkpoint and save/load",
+               f"seconds {({k: round(v, 3) for k, v in t.items()})}, files MB {sizes}; resumed "
+               "== direct field by field, ids equal after load")
+    del direct, res, back, xs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    base = [sys.executable, "-m", "zvdb_tpu_torch.bench.sweep", "--recall",
+            "--device", dev.type, "--dims", str(ctx.dim)]
+    base += (["--points", "2000", "--queries", "200"] if ctx.rehearse else
+             ["--points", "100000", "--queries", "10000"])
+    for engine, ks in (("ivf", "10,25,50,100"), ("flat", "10"), ("hnsw", "10")):
+        t0 = time.perf_counter()
+        run = subprocess.run(base + ["--engine", engine, "--ks", ks], capture_output=True,
+                             text=True, timeout=900, cwd=ROOT)
+        if run.returncode:
+            print(run.stderr[-4000:], flush=True)
+            raise AssertionError(f"the sweep CLI failed for --engine {engine}")
+        rows = [line for line in run.stderr.splitlines()
+                if line.startswith(("insertion:", "search:"))]
+        last = json.loads(run.stdout.strip().splitlines()[-1])
+        ctx.report(f"sweep CLI --engine {engine} --ks {ks} ({time.perf_counter() - t0:.1f} s)",
+                   json.dumps(last))
+        for line in rows:
+            print("  " + line, flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -2557,6 +2984,12 @@ def main() -> int:
     phase_hnsw_insert(ctx, x1, q1, gt, hn_ef, hn_ids)
     phase_hnsw_batched(ctx, x1, q1, gt)
     phase_hnsw_checkpoint(ctx, x1)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_ivf_carry(ctx, x1)
+    phase_ivf_main(ctx, x1, q1, gt)
+    phase_ivf_int8(ctx, x1, q1, gt)
+    phase_ivf_checkpoint_sweep(ctx, x1)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{

@@ -40,7 +40,7 @@ from ..utils.config import _VALID_METRICS
 from ..utils.filter_policy import resolve_filter_mode
 from ..utils.masks import allowed_mask
 from .flat import masked_exact_search, resolve_device, tensor_from_numpy
-from .ivf import _assign, _ivf_range, split_oversized_device
+from .ivf import _assign, _ivf_range, _slot_pairs, split_oversized_device
 from .knn_graph import _kmeans_device
 
 _INF = float("inf")
@@ -196,30 +196,6 @@ def _refine_segment(seg, rr, rrs, lo: int, metric: str, refine: str) -> None:
 
 # ---------------------------------------------------------------------------
 # search
-
-
-def _slot_pairs(probes: torch.Tensor, b: int, p: int, c: int, q_cap: int):
-    """(query, cluster) probe pairs -> per-cluster slots, rank-ordered.
-
-    Sorted stably by (cluster, probe rank): when a hot cluster overflows its
-    q_cap slots, the dropped pairs are its highest-rank probes. Dropped pairs
-    land in a trash row c that is cut off (duplicate writes happen only
-    there). Returns (qslot, pslot) [C, q_cap] int32, -1 empty."""
-    dev = probes.device
-    pair_c = probes.reshape(-1).long()
-    pair_q = torch.arange(b, device=dev).repeat_interleave(p)
-    pair_p = torch.arange(p, device=dev).repeat(b)
-    order = torch.argsort(pair_c * p + pair_p, stable=True)
-    sc_, sq_, sp_ = pair_c[order], pair_q[order], pair_p[order]
-    rank = torch.arange(b * p, device=dev) - torch.searchsorted(sc_, sc_, side="left")
-    ok = rank < q_cap
-    wc = torch.where(ok, sc_, c)
-    wr = torch.where(ok, rank, 0)
-    qslot = torch.full((c + 1, q_cap), -1, dtype=torch.int32, device=dev)
-    pslot = torch.full((c + 1, q_cap), -1, dtype=torch.int32, device=dev)
-    qslot[wc, wr] = sq_.to(torch.int32)
-    pslot[wc, wr] = sp_.to(torch.int32)
-    return qslot[:c], pslot[:c]
 
 
 def _q_cap(b: int, p: int, c: int, group_slack: float, scan_precision: str) -> int:
