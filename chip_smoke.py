@@ -215,7 +215,38 @@ Phases, in order; any failure raises and the script exits non-zero:
                   and a save/load round trip (ids equal; files under build/
                   and deleted); then `python -m zvdb_tpu_torch.bench.sweep`
                   at d=128, 100k points, 10k queries for --engine ivf (k 10,
-                  25, 50, 100), flat and hnsw (k 10), their JSON rows.
+                  25, 50, 100), flat and hnsw (k 10), their JSON rows;
+ 30. sharded flat - sharded_flat_1m: ShardedFlat(FlatConfig(dim=128,
+                  precision="highest")) over 4 shards placed on the one card
+                  (make_mesh cycles the devices), built from host rows
+                  (seconds, live_buffer_bytes after the build): ids equal to
+                  the single-chip exact FlatIndex's up to ties over every
+                  query, QPS, each shard's and the merge's ms a batch (synced
+                  utils/profiling phases), then 1% removed and a 10%
+                  allowlist against the oracle with the same tombstones, and
+                  search_range counts bracketed by the oracle's, a
+                  torch.profiler breakdown of a batch; no kernel launched;
+ 31. sharded hnsw - sharded_hnsw_1m: hnsw_1m's HNSWConfig(dim=128, m=16,
+                  ef_construction=100, build_batch=8192) over 4 shards on
+                  the card, built by the batched step (points/s beside
+                  phases 24 and 20), the ef sweep {16, ..., 96} over all
+                  queries (recall@10, QPS; the first ef with recall >= 0.95
+                  is kept, else the phase fails), QPS, the per-shard and
+                  merge ms, one batch under utils/profiling.trace (each
+                  span's wall and busy ms, the device's idle share); phase
+                  30's 1% removed (none comes back) and a 10% allowlist in
+                  filter_mode="scan" (the sharded masked scan) against the
+                  exact FlatIndex up to ties; then a build over 99% of the
+                  rows and the last 1% inserted in requests of 100, flushed
+                  with anchor seeding (self-hit@1 >= 0.95) and with JAX's
+                  descent-only seeding (seed_anchors=0); no kernel launched;
+ 32. sharded persist + sweep - ShardedHNSW and ShardedFlat at 100k over 4
+                  shards: save/load round trips (ids equal; files under
+                  build/ and deleted); `python -m zvdb_tpu_torch.bench.sweep
+                  --engine hnsw --devices 4` at d=128, 100k points, 10k
+                  queries (its rows count one device); and
+                  utils/router.suggest_engine on 20,000 corpus rows (its
+                  answer must follow its contrast).
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -2445,6 +2476,7 @@ def phase_hnsw_batched(ctx: Ctx, x1, q1, gt):
     after = kernel_counts()
     del xd
     bs = idx.build_stats
+    ctx.hnsw_batched_s = build_s
     ctx.report("hnsw_1m batched build", f"{build_s:.3f} s, {ctx.n / build_s:.1f} points/s over "
                f"{bs['batches']} batches (phase 20's one-shot: {ctx.n / ctx.hnsw_oneshot_s:.1f} "
                "points/s)")
@@ -2931,6 +2963,388 @@ def phase_ivf_checkpoint_sweep(ctx: Ctx, x1):
             print("  " + line, flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the sharded engines: 4 shards on the one card (no kernel runs on their paths)
+
+N_SHARDS = 4
+
+
+def sharded_mesh(ctx: Ctx):
+    """4 shards placed cyclically on the one device: every shard on it."""
+    from zvdb_tpu_torch import make_mesh
+
+    return make_mesh(n_shards=N_SHARDS, devices=[ctx.device])
+
+
+def batched_search(ctx, index, q1, **search_kwargs):
+    """(scores, ids) of every query, in batches, as numpy."""
+    out = [index.search(q1[lo:lo + ctx.batch], K, **search_kwargs)
+           for lo in range(0, q1.shape[0], ctx.batch)]
+    return (torch.cat([o[0] for o in out]).cpu().numpy(),
+            torch.cat([o[1] for o in out]).cpu().numpy())
+
+
+def differing_ties(label, got, want, atol):
+    """tests/test_sharded_equivalence.py's rule: scores equal slot by slot
+    (rtol 1e-4, `atol`), so an id may differ only where both sides score
+    the slot alike (a tie). Returns the number of differing ids."""
+    (sa, ia), (sb, ib) = got, want
+    fin = np.isfinite(sa) | np.isfinite(sb)
+    close = np.isclose(np.where(fin, sa, 0.0), np.where(fin, sb, 0.0), rtol=1e-4, atol=atol)
+    if not close.all():
+        raise AssertionError(f"{label}: {int((~close).sum())} scores differ from the flat "
+                             f"oracle's (first at {np.argwhere(~close)[0]})")
+    return int(((ia != ib) & fin).sum())
+
+
+def shard_times(ctx: Ctx, idx, q1, label: str, **search_kwargs):
+    """One pass over every query with a utils.profiling.PhaseRecorder on the
+    index: ms a batch of each shard's local search and of the merge (each
+    span ends in a sync)."""
+    from zvdb_tpu_torch.utils.profiling import PhaseRecorder
+
+    idx.recorder = PhaseRecorder()
+    try:
+        batched_ids(ctx, idx, q1, **search_kwargs)
+    finally:
+        rec, idx.recorder = idx.recorder.report(), None
+    ctx.report(f"{label} ms a batch of {ctx.batch} by span (synced phases)",
+               {name: round(r["mean_s"] * 1e3, 3) for name, r in rec.items()})
+    return rec
+
+
+def range_counts_check(ctx, idx, oracle, q1, label: str):
+    """search_range counts on 256 queries at the median 10th-neighbour
+    distance, bracketed by the flat oracle's at radius x (1 -+ 1e-5)."""
+    qr = q1[:256]
+    radius = float(np.median(oracle.search(qr, K)[0].cpu().numpy()[:, -1]))
+    t0 = time.perf_counter()
+    s, i, got = (a.cpu().numpy() for a in idx.search_range(qr, radius, max_results=K))
+    dt = time.perf_counter() - t0
+    want = oracle.search_range(qr, radius, max_results=K)[2].cpu().numpy()
+    lo = oracle.search_range(qr, radius * (1 - 1e-5), max_results=K)[2].cpu().numpy()
+    hi = oracle.search_range(qr, radius * (1 + 1e-5), max_results=K)[2].cpu().numpy()
+    ctx.report(f"{label} search_range (256 queries, radius {radius:.4f}, {dt * 1e3:.1f} ms)",
+               f"counts equal to the flat oracle's on {int((got == want).sum())} of 256 (mean "
+               f"count {got.mean():.2f}); all within the oracle's at radius x (1 -+ 1e-5)")
+    if not ((lo <= got) & (got <= hi)).all() or (s[i >= 0] > radius).any():
+        raise AssertionError(f"{label} search_range differs from the flat oracle's")
+
+
+def phase_sharded_flat(ctx: Ctx, x1, q1, gt):
+    """30. sharded_flat_1m: ShardedFlat(FlatConfig(precision="highest")) over
+    4 shards on the card against the port's single-chip exact FlatIndex."""
+    from zvdb_tpu_torch import FlatConfig, FlatIndex, ShardedFlat
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.profiling import Phase, live_buffer_bytes
+
+    dev = ctx.device
+    cfg = FlatConfig(dim=ctx.dim, precision="highest")
+    oracle = FlatIndex(dataclasses.replace(cfg, tile_n=262144), capacity=ctx.n, device=dev)
+    oracle.add(x1)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        before = live_buffer_bytes()
+    reset_kernel_counts()
+    with Phase("sharded_flat_1m build") as p:
+        idx = ShardedFlat(cfg, mesh=sharded_mesh(ctx))
+        idx.build(x1)
+    ctx.report("sharded_flat_1m build", f"{p.elapsed_s:.3f} s ({ctx.n / p.elapsed_s:.1f} "
+               f"points/s from host rows), shards {idx._per_shard_n.tolist()} on {idx.mesh}")
+    if dev.type == "cuda":
+        ctx.report("sharded_flat_1m live_buffer_bytes after the build (GB; the oracle's "
+                   "excluded)", (live_buffer_bytes() - before) / 1e9)
+    else:
+        ctx.report("sharded_flat_1m live_buffer_bytes", "not measured (CUDA tensors only)")
+
+    got, want = batched_search(ctx, idx, q1), batched_search(ctx, oracle, q1)
+    bad = differing_ties("sharded_flat_1m", got, want, atol=1e-3)
+    ctx.report("sharded_flat_1m ids against the single-chip exact FlatIndex (all queries)",
+               f"{bad} of {got[1].size} differ, each at a tie; recall@10 vs phase 4's truth "
+               f"{recall_at_k(got[1], gt, K)}")
+    ctx.report(f"sharded_flat_1m search QPS (batches of {ctx.batch}, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs={}))
+    shard_times(ctx, idx, q1, "sharded_flat_1m")
+    profile_search(ctx, idx, q1, label="sharded_flat_1m", search_kwargs={})
+
+    rng = np.random.default_rng(30)
+    dead = rng.choice(ctx.n, ctx.n // 100, replace=False)
+    with Phase("remove") as p:
+        removed = idx.remove(dead)
+    oracle.remove(dead)
+    qf = q1[:ctx.batch]
+    got = tuple(a.cpu().numpy() for a in idx.search(qf, K))
+    bad = differing_ties("sharded_flat_1m after remove", got,
+                         tuple(a.cpu().numpy() for a in oracle.search(qf, K)), atol=1e-3)
+    if removed != dead.size or np.isin(got[1], dead).any():
+        raise AssertionError("sharded_flat_1m: remove did not take every id out")
+    allow = np.sort(rng.choice(ctx.n, ctx.n // 10, replace=False))
+    ctx.sync()
+    t0 = time.perf_counter()
+    fgot = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow))
+    t_f = time.perf_counter() - t0
+    fbad = differing_ties("sharded_flat_1m filtered", fgot,
+                          tuple(a.cpu().numpy() for a in oracle.search(qf, K, allowed=allow)),
+                          atol=1e-3)
+    ids = fgot[1]
+    if not np.isin(ids[ids >= 0], allow).all() or np.isin(ids, dead).any():
+        raise AssertionError("sharded_flat_1m filtered: an id outside the allowlist or removed")
+    ctx.report("sharded_flat_1m remove 1% + a 10% allowlist", f"{removed} ids removed in "
+               f"{p.elapsed_s * 1e3:.1f} ms, {bad} ids differ from the oracle's after it (ties); "
+               f"filtered batch {t_f * 1e3:.1f} ms, {fbad} differ (ties)")
+    range_counts_check(ctx, idx, oracle, q1, "sharded_flat_1m")
+    if any(kernel_counts().values()):
+        raise AssertionError(f"the sharded flat path launched kernels: {kernel_counts()}")
+    del idx
+    return oracle, dead
+
+
+def trace_split(ctx: Ctx, label: str, call):
+    """`call` once under utils/profiling.trace: each "zvdb ..." span's wall
+    ms (shard s, merge) and the device's busy ms inside it, from the Chrome
+    trace the profiler writes; the file is deleted after."""
+    import glob
+    import shutil
+
+    from zvdb_tpu_torch.utils.profiling import trace
+
+    log_dir = os.path.join(ROOT, "build", "sharded_trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    try:
+        with trace(log_dir):
+            t0 = time.perf_counter()
+            call()
+            ctx.sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3   # the trace's export not included
+        with open(glob.glob(os.path.join(log_dir, "*.json"))[0]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    spans = [(e["name"][5:], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("zvdb ")]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "kernel")
+    if not kernels:
+        ctx.report(label, f"{len(spans)} spans, {wall_ms:.1f} ms wall; no device time in the "
+                   "trace: the split is not measured")
+        return
+
+    def busy(a, b):
+        """Device-busy microseconds inside [a, b]: the union of kernel intervals."""
+        total, end = 0.0, a
+        for k0, k1 in kernels:
+            k0, k1 = max(k0, end), min(k1, b)
+            if k1 > k0:
+                total += k1 - k0
+                end = k1
+        return total
+
+    split = {name: f"{(b - a) / 1e3:.3f} ms wall, {busy(a, b) / 1e3:.3f} ms busy"
+             for name, a, b in spans}
+    a0, b0 = min(a for _, a, _ in spans), max(b for _, _, b in spans)
+    ctx.report(label, f"{wall_ms:.1f} ms wall; spans {split}; device idle "
+               f"{100 * (1 - busy(a0, b0) / (b0 - a0)):.1f}% of the spans' window; "
+               f"{len(kernels)} kernels")
+
+
+def clone_sharded_hnsw(idx, search_cfg):
+    """A copy of a ShardedHNSW (tensors cloned on their devices) searching
+    and flushing with `search_cfg`."""
+    from zvdb_tpu_torch import ShardedHNSW
+    from zvdb_tpu_torch.index import hnsw as TH
+
+    c = ShardedHNSW(idx.cfg, search_cfg, mesh=idx.mesh, seed=7)
+    c.state = [dataclasses.replace(st, **{f: getattr(st, f).clone() for f in TH.FIELDS
+                                          if torch.is_tensor(getattr(st, f))})
+               for st in idx.state]
+    c.levels_cap, c.shard_cap, c._n, c._anchor_n = (idx.levels_cap, idx.shard_cap, idx._n,
+                                                    idx._anchor_n)
+    return c
+
+
+def phase_sharded_hnsw(ctx: Ctx, x1, q1, gt, oracle, dead):
+    """31. sharded_hnsw_1m: hnsw_1m's configuration over 4 shards on the
+    card, built by the batched step; the ef sweep; 10,000 inserted rows with
+    and without anchor seeding; remove + the sharded masked scan."""
+    from zvdb_tpu_torch import HNSWConfig, SearchConfig, ShardedHNSW
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.profiling import Phase
+
+    dev = ctx.device
+    cfg = HNSWConfig(dim=ctx.dim, m=16, ef_construction=100,
+                     build_batch=1024 if ctx.rehearse else 8192)
+    ctx.report("sharded_hnsw_1m config", cfg)
+    mesh = sharded_mesh(ctx)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    with Phase("sharded_hnsw_1m build") as p:
+        idx = ShardedHNSW(cfg, mesh=mesh, seed=0)
+        idx.build(x1)
+    ctx.report("sharded_hnsw_1m build", f"{p.elapsed_s:.3f} s, {ctx.n / p.elapsed_s:.1f} "
+               f"points/s from host rows, shards {[st.n for st in idx.state]}, shard_cap "
+               f"{idx.shard_cap}, levels_cap {idx.levels_cap}, anchors "
+               f"{idx.state[0].anchors.shape[0]} a shard (single chip: phase 24's batched "
+               f"{ctx.n / getattr(ctx, 'hnsw_batched_s', float('nan')):.1f}, phase 20's one-shot "
+               f"{ctx.n / getattr(ctx, 'hnsw_oneshot_s', float('nan')):.1f} points/s)")
+    if dev.type == "cuda":
+        ctx.report("sharded_hnsw_1m peak device memory GB (build, max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    sweep, ef = {}, None
+    for e in EFS:
+        ctx.sync()
+        t0 = time.perf_counter()
+        ids = batched_ids(ctx, idx, q1, ef_search=e)
+        qps = q1.shape[0] / (time.perf_counter() - t0)
+        rec = recall_at_k(ids, gt, K)
+        sweep[e] = (rec, round(qps, 1))
+        if ef is None and rec >= 0.95:
+            ef = e
+    ctx.report("sharded_hnsw_1m ef sweep (recall@10 over all queries, QPS)", sweep)
+    ctx.report("sharded_hnsw_1m first ef with recall@10 >= 0.95", ef)
+    if ef is None:
+        raise AssertionError(f"sharded_hnsw_1m recall@10 stays below 0.95 up to ef=96: {sweep}")
+    ctx.report(f"sharded_hnsw_1m search QPS (ef={ef}, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs={"ef_search": ef}))
+    shard_times(ctx, idx, q1, f"sharded_hnsw_1m (ef={ef})", ef_search=ef)
+    trace_split(ctx, f"sharded_hnsw_1m one traced batch of {ctx.batch} (ef={ef})",
+                lambda: idx.search(q1[:ctx.batch], K, ef_search=ef))
+    if any(kernel_counts().values()):
+        raise AssertionError(f"the sharded HNSW path launched kernels: {kernel_counts()}")
+
+    # remove 1% (phase 30's ids: the oracle holds the same tombstones), then
+    # a 10% filter through the sharded masked scan
+    with Phase("remove") as p:
+        idx.remove(dead)
+    ids = batched_ids(ctx, idx, q1, ef_search=ef)
+    if np.isin(ids, dead).any():
+        raise AssertionError("sharded_hnsw_1m: a removed id came back")
+    qf = q1[:ctx.batch]
+    allow = np.sort(np.random.default_rng(31).choice(ctx.n, ctx.n // 10, replace=False))
+    ctx.sync()
+    t0 = time.perf_counter()
+    fgot = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow, filter_mode="scan"))
+    t_f = time.perf_counter() - t0
+    # the scan's products are the config's bf16x3 ("high"): atol 1e-2 of scores ~1-10
+    fbad = differing_ties("sharded_hnsw_1m filtered scan", fgot,
+                          tuple(a.cpu().numpy() for a in oracle.search(qf, K, allowed=allow)),
+                          atol=1e-2)
+    if not np.isin(fgot[1][fgot[1] >= 0], allow).all() or np.isin(fgot[1], dead).any():
+        raise AssertionError("sharded_hnsw_1m filtered: an id outside the allowlist or removed")
+    ctx.report("sharded_hnsw_1m remove 1% + a 10% allowlist in filter_mode=scan",
+               f"{dead.size} removed in {p.elapsed_s * 1e3:.1f} ms, none returned; recall@10 "
+               f"vs the unfiltered truth {recall_at_k(ids, gt, K)}; filtered batch "
+               f"{t_f * 1e3:.1f} ms, {fbad} ids differ from the exact FlatIndex's (ties)")
+    del idx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 10,000 rows inserted in requests of 100 into a build over the rest,
+    # flushed with anchor seeding (SearchConfig's 16) and with JAX's
+    # descent-only seeding (seed_anchors=0); their global ids are their rows
+    n_ins, req = ctx.n // 100, 100
+    n0 = ctx.n - n_ins
+    base = ShardedHNSW(cfg, mesh=mesh, seed=3)
+    base.build(x1[:n0])
+    sel = _inserted_query_rows(ctx, n0)
+    line = []
+    for seed_anchors in (16, 0):
+        ins = clone_sharded_hnsw(base, SearchConfig(seed_anchors=seed_anchors))
+        reset_kernel_counts()
+        ctx.sync()
+        t0 = time.perf_counter()
+        for lo in range(n0, ctx.n, req):
+            ins.insert(x1[lo:lo + req])
+        ins.flush()
+        ctx.sync()
+        dt = time.perf_counter() - t0
+        hit = float((batched_ids(ctx, ins, x1[n0:], ef_search=ef)[:, 0]
+                     == np.arange(n0, ctx.n)).mean())
+        ids = batched_ids(ctx, ins, q1, ef_search=ef)
+        line.append(f"seed_anchors={seed_anchors}: {dt:.3f} s ({n_ins / dt:.1f} rows/s), "
+                    f"self-hit@1 {hit}, recall@10 {recall_at_k(ids, gt, K)} (of the "
+                    f"{int(sel.sum())} queries from inserted rows "
+                    f"{recall_at_k(ids[sel], gt[sel], K)}), shard_cap {ins.shard_cap}")
+        if any(kernel_counts().values()) or len(ins) != ctx.n:
+            raise AssertionError(f"sharded insert: kernels {kernel_counts()}, len {len(ins)}")
+        if seed_anchors and hit < 0.95:
+            raise AssertionError(f"sharded_hnsw_1m self-hit@1 of the inserted rows {hit} < 0.95")
+        del ins
+    ctx.report(f"sharded_hnsw_1m insert of {n_ins} rows in requests of {req} after a build "
+               f"over {n0} (ef={ef})", "; ".join(line))
+    del base
+    return ef
+
+
+def phase_sharded_persist_sweep(ctx: Ctx, x1, ef: int):
+    """32. ShardedHNSW and ShardedFlat save/load at 100k (ids equal), the
+    sweep CLI with --devices 4, and utils/router.suggest_engine."""
+    from zvdb_tpu_torch import FlatConfig, HNSWConfig, ShardedFlat, ShardedHNSW
+    from zvdb_tpu_torch.utils.profiling import Phase
+    from zvdb_tpu_torch.utils.router import RC_GRAPH_THRESHOLD, suggest_engine
+
+    dev = ctx.device
+    n_small = 5000 if ctx.rehearse else min(100_000, ctx.n)
+    xs = x1[:n_small]
+    qb = xs[:ctx.batch] + np.float32(0.01)
+    mesh = sharded_mesh(ctx)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for name, make, kw in (
+            ("ShardedHNSW", lambda: ShardedHNSW(HNSWConfig(
+                dim=ctx.dim, m=16, ef_construction=100,
+                build_batch=1024 if ctx.rehearse else 8192), mesh=mesh), {"ef_search": ef}),
+            ("ShardedFlat", lambda: ShardedFlat(FlatConfig(dim=ctx.dim), mesh=mesh), {})):
+        path = os.path.join(ROOT, "build", f"{name}_{n_small}.npz")
+        try:
+            with Phase("build") as pb:
+                idx = make()
+                idx.build(xs)
+            before = idx.search(qb, K, **kw)[1]
+            with Phase("save") as ps:
+                idx.save(path)
+            with Phase("load") as pl:
+                back = type(idx).load(path, mesh=mesh)
+            size = os.path.getsize(path)
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+        if not torch.equal(before, back.search(qb, K, **kw)[1]):
+            raise AssertionError(f"{name}: ids differ after the save/load round trip")
+        ctx.report(f"{name} {n_small // 1000}k save/load", f"build {pb.elapsed_s:.2f} s, save "
+                   f"{ps.elapsed_s:.2f} s, load {pl.elapsed_s:.2f} s, file {size / 1e6:.1f} "
+                   "MB; ids equal after load")
+        del idx, back
+
+    argv = [sys.executable, "-m", "zvdb_tpu_torch.bench.sweep", "--recall", "--engine", "hnsw",
+            "--devices", str(N_SHARDS), "--device", dev.type, "--dims", str(ctx.dim), "--ks",
+            "10"] + (["--points", "2000", "--queries", "200"] if ctx.rehearse else
+                     ["--points", "100000", "--queries", "10000"])
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, capture_output=True, text=True, timeout=900, cwd=ROOT)
+    if run.returncode:
+        print(run.stderr[-4000:], flush=True)
+        raise AssertionError("the sweep CLI failed for --engine hnsw --devices 4")
+    last = json.loads(run.stdout.strip().splitlines()[-1])
+    ctx.report(f"sweep CLI --engine hnsw --devices {N_SHARDS} ({time.perf_counter() - t0:.1f} "
+               "s)", json.dumps(last))
+    for line in run.stderr.splitlines():
+        if line.startswith(("sharded:", "insertion:", "search:")):
+            print("  " + line, flush=True)
+    if last["num_devices"] != 1:
+        raise AssertionError(f"a one-card sweep row claims {last['num_devices']} devices")
+
+    sample = x1[np.random.default_rng(32).choice(ctx.n, min(20_000, ctx.n), replace=False)]
+    t0 = time.perf_counter()
+    engine, rc = suggest_engine(sample)
+    ctx.report("utils/router.suggest_engine on 20,000 corpus rows (host numpy)",
+               f"{engine} (relative contrast {rc:.3f}, threshold {RC_GRAPH_THRESHOLD}) in "
+               f"{time.perf_counter() - t0:.3f} s")
+    if not np.isfinite(rc) or engine != ("cagra" if rc >= RC_GRAPH_THRESHOLD else "flat"):
+        raise AssertionError(f"the router's answer {engine} does not follow its contrast {rc}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -2990,6 +3404,12 @@ def main() -> int:
     phase_ivf_main(ctx, x1, q1, gt)
     phase_ivf_int8(ctx, x1, q1, gt)
     phase_ivf_checkpoint_sweep(ctx, x1)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    oracle, dead = phase_sharded_flat(ctx, x1, q1, gt)
+    sh_ef = phase_sharded_hnsw(ctx, x1, q1, gt, oracle, dead)
+    del oracle
+    phase_sharded_persist_sweep(ctx, x1, sh_ef)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{

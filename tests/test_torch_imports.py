@@ -22,6 +22,8 @@ import zvdb_tpu_torch.ops.block_scan, zvdb_tpu_torch.index.build, zvdb_tpu_torch
 import zvdb_tpu_torch.index.cagra
 import zvdb_tpu_torch.ops.scan_topk, zvdb_tpu_torch.ops.hop_scores, zvdb_tpu_torch.io.native_loader
 import zvdb_tpu_torch.utils.router, zvdb_tpu_torch.utils.stats, zvdb_tpu_torch.utils.profiling
+import zvdb_tpu_torch.parallel.mesh, zvdb_tpu_torch.parallel.sharded
+import zvdb_tpu_torch.parallel.sharded_flat, zvdb_tpu_torch.parallel.scan_filter
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(bad)

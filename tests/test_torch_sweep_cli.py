@@ -3,14 +3,18 @@
 Mirrors tests/test_sweep_cli.py with `--device cpu`: every engine builds,
 searches and reports a parseable JSON object as the last line of stdout,
 with the JAX package's row keys and recall floors; OPQ / nsub reach the PQ
-engine; `--out` collects every row. `--devices` above 1 raises: the
-sharded engines are not ported. Tiny shapes: this pins the wiring.
+engine; `--out` collects every row. `--devices 2` builds a 2-shard
+ShardedHNSW for --engine hnsw (on the one CPU: its rows say one device and
+carry JAX's keys) and raises for every other engine. Tiny shapes: this pins
+the wiring.
 """
+import dataclasses
 import json
 
 import pytest
 import torch
 
+from zvdb_tpu.bench.harness import BenchmarkResult as JaxRow
 from zvdb_tpu_torch.bench import sweep
 
 
@@ -58,8 +62,21 @@ def test_out_file_collects_all_rows(capsys, tmp_path):
     assert {r.get("k") for r in rows if r["operation"] == "search"} == {3, 5}
 
 
-@pytest.mark.parametrize("engine", ["hnsw", "ivf"])
+@pytest.mark.parametrize("engine", ["flat", "ivf"])
 def test_several_devices_raise(capsys, engine):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="only --engine hnsw"):
         sweep.main(BASE + ["--engine", engine, "--devices", "2"])
     assert capsys.readouterr().out == ""
+
+
+def test_sharded_hnsw_rows(capsys):
+    sweep.main(BASE + ["--engine", "hnsw", "--devices", "2", "--ks", "3,5"])
+    out = capsys.readouterr()
+    rows = [json.loads(line) for line in out.out.strip().splitlines()]
+    assert len(rows) == 1 and "2 shards over 1 device(s)" in out.err
+    rec = rows[0]
+    assert set(rec) == {f.name for f in dataclasses.fields(JaxRow)}
+    assert (rec["operation"], rec["num_points"], rec["k"], rec["num_devices"]) == (
+        "search", 600, 5, 1)
+    assert rec["recall"] >= 0.9
+    assert out.err.count("insertion:") == 1 and out.err.count("search:") == 2

@@ -5,7 +5,9 @@ it and no JAX. Ported so far: the flat, PQ, IVF-PQ, CAGRA, HNSW and IVF-Flat eng
 (HNSW whole: insert and flush, the one-shot and batched builds with their
 checkpoints, search, persistence), the server in front of them, the engine
 router, the host tools (bench harness, datasets and native loader, stats,
-profiling) and the sweep CLI (`python -m zvdb_tpu_torch.bench.sweep`).
+profiling), the sweep CLI (`python -m zvdb_tpu_torch.bench.sweep`) and the
+sharded flat and HNSW engines over a device mesh (`make_mesh`,
+`make_hybrid_mesh`, `ShardedFlat`, `ShardedHNSW`, imported on first use).
 
     from zvdb_tpu_torch import (HNSW, CagraConfig, CagraIndex, FlatConfig, FlatIndex,
                                 HNSWConfig, HNSWState, IVFConfig, IVFIndex, IVFPQConfig,
@@ -30,4 +32,28 @@ from .utils.router import relative_contrast, suggest_engine
 __all__ = ["HNSW", "CagraConfig", "CagraIndex", "FlatConfig", "FlatIndex", "HNSWConfig",
            "HNSWState", "IVFConfig", "IVFIndex", "IVFPQConfig", "IVFPQIndex", "PQConfig",
            "PQFlatIndex", "SearchConfig", "SearchServer", "exact_ground_truth",
-           "relative_contrast", "suggest_engine"]
+           "make_hybrid_mesh", "relative_contrast", "suggest_engine"]
+
+# the sharded engines not ported yet, and the ROADMAP.md item that ports each
+_NOT_PORTED = {"ShardedPQFlat": "2c", "ShardedIVFPQ": "2c", "ShardedIVF": "2d",
+               "ShardedCagra": "2e"}
+
+
+def __getattr__(name):
+    # the sharded engines and the meshes import on first use
+    if name in ("make_mesh", "make_hybrid_mesh"):
+        from .parallel import mesh
+
+        return getattr(mesh, name)
+    if name == "ShardedFlat":
+        from .parallel.sharded_flat import ShardedFlat
+
+        return ShardedFlat
+    if name == "ShardedHNSW":
+        from .parallel.sharded import ShardedHNSW
+
+        return ShardedHNSW
+    if name in _NOT_PORTED:
+        raise AttributeError(f"{name} is not ported to zvdb_tpu_torch yet (ROADMAP.md queue 1 "
+                             f"item {_NOT_PORTED[name]})")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,8 +7,13 @@ benchmarks/single_threaded_benchmarks.zig:28-33,
 shared_benchmarks.zig:90-113). The flags and the JSON rows are the JAX
 package's; `--device` picks the card (default "cuda") or the CPU.
 
-One device only: a sweep over several devices needs the sharded engines,
-which are not ported yet, so `--devices` above 1 raises.
+`--devices N` above 1 builds a ShardedHNSW with N shards for `--engine
+hnsw`, as the JAX package's sweep does; the shards go to the visible GPUs in
+turn (all of them onto one card when there is one) or onto the CPU with
+`--device cpu`. A row's `num_devices` is the number of distinct devices the
+mesh spans, and the shard count goes to stderr. Every other engine raises
+for N above 1: JAX's sweep runs those on one device and still labels their
+rows with N devices.
 
 Usage:
     python -m zvdb_tpu_torch.bench.sweep [--points 100000] [--queries 10000]
@@ -21,6 +26,7 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
 
 def main(argv=None):
@@ -58,10 +64,10 @@ def main(argv=None):
                     help="torch device of every index (default cuda)")
     ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args(argv)
-    if args.devices > 1:
+    if args.devices > 1 and args.engine != "hnsw":
         raise NotImplementedError(
-            "--devices > 1 needs the sharded engines (ShardedHNSW), which the port "
-            "does not have yet (ROADMAP.md queue 1 item 4)")
+            f"--devices > 1 shards only --engine hnsw; the port has no sharded {args.engine} "
+            "engine for the sweep (ROADMAP.md queue 1 item 2)")
 
     from zvdb_tpu_torch import (
         HNSW, CagraConfig, CagraIndex, FlatConfig, FlatIndex, HNSWConfig, IVFConfig,
@@ -74,6 +80,16 @@ def main(argv=None):
     from zvdb_tpu_torch.io.datasets import load_dataset, make_queries
 
     device = resolve_device(args.device)
+    num_devices = 1
+    if args.devices > 1:
+        from zvdb_tpu_torch import ShardedHNSW, make_mesh
+
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" and device.index is None else [device])
+        mesh = make_mesh(n_shards=args.devices, devices=devices)
+        num_devices = mesh.n_devices
+        print(f"sharded: {args.devices} shards over {num_devices} device(s): {mesh}",
+              file=sys.stderr, flush=True)
     dims = [int(v) for v in args.dims.split(",")]
     ks = [int(v) for v in args.ks.split(",")]
     rng = np.random.default_rng(1234)
@@ -116,12 +132,16 @@ def main(argv=None):
             n_sub = args.pq_nsub if d % args.pq_nsub == 0 else (16 if d % 16 == 0 else 8)
             factory = lambda: PQFlatIndex(
                 PQConfig(dim=d, metric=metric, n_sub=n_sub, opq=args.opq), device=device)
+        elif args.devices > 1:
+            factory = lambda: ShardedHNSW(
+                HNSWConfig(dim=d, m=args.m, ef_construction=args.efc, metric=metric,
+                           build_batch=args.build_batch), mesh=mesh)
         else:
             factory = lambda: HNSW(
                 HNSWConfig(dim=d, m=args.m, ef_construction=args.efc, metric=metric,
                            build_batch=args.build_batch), device=device)
 
-        idx, ins = run_insertion_benchmark(factory, x, num_devices=args.devices)
+        idx, ins = run_insertion_benchmark(factory, x, num_devices=num_devices)
         print(ins, file=sys.stderr, flush=True)
         results.append(ins)
         if sink:
@@ -137,7 +157,7 @@ def main(argv=None):
             search_fn = None
 
         for k in ks:
-            _, sr = run_search_benchmark(idx, q, k, args.ef, gt=gt, num_devices=args.devices,
+            _, sr = run_search_benchmark(idx, q, k, args.ef, gt=gt, num_devices=num_devices,
                                          warmup=1, search_fn=search_fn)
             print(sr, file=sys.stderr, flush=True)
             results.append(sr)
