@@ -246,7 +246,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                   --engine hnsw --devices 4` at d=128, 100k points, 10k
                   queries (its rows count one device); and
                   utils/router.suggest_engine on 20,000 corpus rows (its
-                  answer must follow its contrast).
+                  answer must follow its contrast);
+ 33. sharded pq - sharded_pq_1m: pq_1m's PQConfig over 4 shards on the card
+                  (codes nibble-packed a shard, as kernel B reads them),
+                  built from host rows (points/s, live_buffer_bytes);
+                  searched in batches: kernel B exactly 4 launches a batch,
+                  all on the tensor cores, nothing else launched; recall@10
+                  >= 0.95 and >= phase 7's minus 0.005; QPS, the per-shard
+                  and merge ms, one traced batch (the idle share); kernel B
+                  on shard 0's own inputs against its plain version in
+                  every precision, int8 also against the CUDA-core kernel;
+                  1% removed (none comes back) and a 10% allowlist;
+ 34. sharded ivfpq - sharded_ivfpq_1m: ivfpq_1m's IVFPQConfig over 4
+                  shards (one single-chip build, then the clusters placed
+                  largest first on the least-loaded shard), the build timed
+                  whole and in its two parts; searched at nprobe=8,
+                  rerank=12: kernel C exactly 4 launches a batch and nothing
+                  else; recall@10 >= 0.95 and >= phase 10's minus 0.005;
+                  QPS, per-shard and merge ms, one traced batch; kernel C
+                  on shard 0's own slots, blocks and table against its plain
+                  version; a 1% allowlist in "scan" (the exact masked scan,
+                  against the masked truth up to ties) and "probe" modes;
+                  remove 1% and compact, timed; 10,000 and 1,000 rows added
+                  to a build over 99% (rows/s, the path taken, self-hit@1 >=
+                  0.95);
+ 35. sharded pq persist - both engines at 100k: save/load round trips
+                  (ids equal; files under build/ and deleted), each file
+                  loaded onto CPU devices too (the plain kernels: ids equal
+                  to the card's up to ties), and ShardedIVFPQ == the
+                  single-chip IVFPQIndex on an exhaustive pool on the card.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -3345,6 +3373,330 @@ def phase_sharded_persist_sweep(ctx: Ctx, x1, ef: int):
         raise AssertionError(f"the router's answer {engine} does not follow its contrast {rc}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded PQ engines: kernels B and C once a shard a batch
+
+def phase_sharded_pq(ctx: Ctx, x1, q1, gt, pq_recall: float):
+    """33. sharded_pq_1m: pq_1m's configuration over 4 shards on the card,
+    kernel B once a shard a batch."""
+    from zvdb_tpu_torch import ShardedPQFlat
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.ops import distance as D
+    from zvdb_tpu_torch.ops import pq as PQ
+    from zvdb_tpu_torch.ops import pq_scan as PS
+    from zvdb_tpu_torch.utils.profiling import Phase, live_buffer_bytes
+
+    dev = ctx.device
+    cfg = pq_config(ctx)
+    ctx.report("sharded_pq_1m config", f"{cfg}, {N_SHARDS} shards")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        before = live_buffer_bytes()
+    with Phase("sharded_pq_1m build") as p:
+        idx = ShardedPQFlat(cfg, mesh=sharded_mesh(ctx))
+        idx.build(x1)
+    ctx.report("sharded_pq_1m build", f"{p.elapsed_s:.3f} s ({ctx.n / p.elapsed_s:.1f} points/s "
+               f"from host rows), shards {idx._per_shard_n.tolist()}, codes a shard "
+               f"{tuple(idx.state[0]['codes'].shape)}")
+    if dev.type == "cuda":
+        ctx.report("sharded_pq_1m live_buffer_bytes after the build (GB)",
+                   (live_buffer_bytes() - before) / 1e9)
+    n_batches = -(-q1.shape[0] // ctx.batch)
+    reset_kernel_counts()
+    ids = batched_ids(ctx, idx, q1, **APPROX)
+    ctx.sync()
+    counts = kernel_counts()
+    rec = recall_at_k(ids, gt, K)
+    ctx.report("sharded_pq_1m kernel launches", f"{counts} for {n_batches} batches "
+               f"({N_SHARDS} shards)")
+    ctx.report("sharded_pq_1m recall@10 (all queries)",
+               f"{rec} (single-chip pq_1m {pq_recall})")
+    want = N_SHARDS * n_batches
+    if not ctx.rehearse and (counts["B"] != want or counts["B_mma"] != want
+                             or sum(counts.values()) != 2 * want):
+        raise AssertionError(f"sharded_pq_1m: kernel B launched {counts['B']} times "
+                             f"({counts['B_mma']} on the tensor cores), not {want}: {counts}")
+    if rec < 0.95 or rec < pq_recall - 0.005:
+        raise AssertionError(f"sharded_pq_1m recall@10 {rec} < max(0.95, {pq_recall} - 0.005)")
+    ctx.report(f"sharded_pq_1m search QPS (batches of {ctx.batch}, 3 runs)",
+               search_qps(ctx, idx, q1))
+    shard_times(ctx, idx, q1, "sharded_pq_1m", **APPROX)
+    trace_split(ctx, f"sharded_pq_1m one traced batch of {ctx.batch}",
+                lambda: idx.search(q1[:ctx.batch], K))
+
+    # kernel B on shard 0's own inputs: the first batch's table, its codes
+    # and norms
+    st = idx.state[0]
+    qs = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(dev), cfg.metric)
+    lut = PQ.adc_lut(PQ.apply_rotation(qs, idx.rot), idx.codebooks)
+    args = (cfg.l_bins, cfg.pallas_chunk, cfg.metric)
+    for precision in ("int8", "default", "high"):
+        compare_pq_case(
+            ctx, f"PQ shard 0 inputs B={lut.shape[0]} N={st['norms'].shape[0]} {precision}",
+            lut, st["codes"], st["norms"], *args, precision, cfg.per_bin, cfg.seg_rows)
+    if not ctx.rehearse:
+        ns, ni = PS.pq_scan_bins(lut, st["codes"], st["norms"], l_bins=cfg.l_bins,
+                                 chunk=cfg.pallas_chunk, metric=cfg.metric, precision="int8",
+                                 per_bin=cfg.per_bin, seg_rows=cfg.seg_rows)
+        os_, oi = PS.launch(PS.build(), lut, st["codes"], st["norms"], *args, "int8",
+                            cfg.per_bin, cfg.seg_rows)
+        ctx.sync()
+        if not (torch.equal(ni, oi) and torch.equal(ns, os_)):
+            raise AssertionError("PQ shard 0 int8: the tensor cores and the CUDA cores differ")
+        print("  compare PQ shard 0 inputs int8: tensor cores == CUDA cores, ids and scores",
+              flush=True)
+
+    # remove 1% and a 10% allowlist
+    rng = np.random.default_rng(33)
+    dead = rng.choice(ctx.n, ctx.n // 100, replace=False)
+    with Phase("remove") as p:
+        removed = idx.remove(dead)
+    ids = batched_ids(ctx, idx, q1, **APPROX)
+    allow = np.sort(rng.choice(ctx.n, ctx.n // 10, replace=False))
+    qf = q1[:ctx.batch]
+    ctx.sync()
+    t0 = time.perf_counter()
+    fids = idx.search(qf, K, allowed=allow)[1].cpu().numpy()
+    t_f = time.perf_counter() - t0
+    if removed != dead.size or np.isin(ids, dead).any() or np.isin(fids, dead).any() \
+            or not np.isin(fids[fids >= 0], allow).all():
+        raise AssertionError("sharded_pq_1m: a removed id came back or an id outside the "
+                             "allowlist surfaced")
+    ctx.report("sharded_pq_1m remove 1% + a 10% allowlist",
+               f"{removed} ids removed in {p.elapsed_s * 1e3:.1f} ms, none returned; recall@10 "
+               f"vs the unfiltered truth {recall_at_k(ids, gt, K)}; filtered batch "
+               f"{t_f * 1e3:.1f} ms, only allowed ids")
+    del idx
+
+
+def phase_sharded_ivfpq(ctx: Ctx, x1, q1, gt, ivf_recall: float):
+    """34. sharded_ivfpq_1m: ivfpq_1m's configuration over 4 shards on the
+    card, kernel C once a shard a batch."""
+    from zvdb_tpu_torch import (FlatConfig, FlatIndex, IVFPQConfig, IVFPQIndex,
+                                ShardedIVFPQ)
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.index import ivfpq as IV
+    from zvdb_tpu_torch.ops import distance as D
+    from zvdb_tpu_torch.ops import pq as PQ
+    from zvdb_tpu_torch.utils.profiling import Phase
+
+    dev = ctx.device
+    cfg = IVFPQConfig(dim=ctx.dim)
+    mesh = sharded_mesh(ctx)
+    ctx.report("sharded_ivfpq_1m config", f"{cfg}, search {IVFPQ_SEARCH}, {N_SHARDS} shards")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with Phase("sharded_ivfpq_1m build") as p:
+        idx = ShardedIVFPQ(cfg, mesh=mesh)
+        idx.build(x1)
+    with Phase("single-chip build") as ps:      # the same build in its two parts
+        single = IVFPQIndex(cfg, device=dev)
+        single.build(x1)
+    with Phase("placement") as pp:
+        ShardedIVFPQ(cfg, mesh=mesh)._place(single.state)
+    del single
+    st0 = idx.state[0]
+    ctx.report("sharded_ivfpq_1m build", f"{p.elapsed_s:.3f} s ({ctx.n / p.elapsed_s:.1f} "
+               f"points/s from host rows); again in parts: single-chip build "
+               f"{ps.elapsed_s:.3f} s, placement {pp.elapsed_s:.3f} s; clusters "
+               f"{idx._cluster_of.shape[0]}, C_loc {st0.codes_blocks.shape[0]}, cap "
+               f"{st0.codes_blocks.shape[2]}, rows a shard {idx._n_loc.tolist()}, rcap "
+               f"{st0.refine.shape[0]}")
+    if dev.type == "cuda":
+        ctx.report("sharded_ivfpq_1m peak device memory GB (the builds, max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    n_batches = -(-q1.shape[0] // ctx.batch)
+    reset_kernel_counts()
+    ids = batched_ids(ctx, idx, q1, **IVFPQ_SEARCH)
+    ctx.sync()
+    counts = kernel_counts()
+    rec = recall_at_k(ids, gt, K)
+    ctx.report("sharded_ivfpq_1m kernel launches", f"{counts} for {n_batches} batches "
+               f"({N_SHARDS} shards)")
+    ctx.report("sharded_ivfpq_1m recall@10 (all queries)",
+               f"{rec} (single-chip ivfpq_1m {ivf_recall})")
+    want = N_SHARDS * n_batches
+    if not ctx.rehearse and (counts["C"] != want or sum(counts.values()) != want):
+        raise AssertionError(f"sharded_ivfpq_1m: kernel C launched {counts['C']} times, not "
+                             f"{want}: {counts}")
+    if rec < 0.95 or rec < ivf_recall - 0.005:
+        raise AssertionError(f"sharded_ivfpq_1m recall@10 {rec} < max(0.95, {ivf_recall} "
+                             "- 0.005)")
+    ctx.report(f"sharded_ivfpq_1m search QPS (batches of {ctx.batch}, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs=IVFPQ_SEARCH))
+    shard_times(ctx, idx, q1, "sharded_ivfpq_1m", **IVFPQ_SEARCH)
+    trace_split(ctx, f"sharded_ivfpq_1m one traced batch of {ctx.batch}",
+                lambda: idx.search(q1[:ctx.batch], K, **IVFPQ_SEARCH))
+
+    # kernel C on shard 0's own inputs: its slots for the first batch, its
+    # blocks, the table
+    qp = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(dev), cfg.metric)
+    p_loc = min(-(-IVFPQ_SEARCH["nprobe"] // N_SHARDS) + 1, st0.c_norms.shape[0])
+    _, qslot, _ = IV._probe_slots(st0, qp, p_loc, cfg.group_slack, cfg.scan_precision,
+                                  cfg.metric, c_mask=idx.c_mask[0])
+    lut = PQ.adc_lut(PQ.apply_rotation(qp, st0.rot), st0.codebooks)
+    for precision in ("int8", "default", "high"):
+        compare_grouped_case(
+            ctx, f"IVF-PQ shard 0 inputs B={lut.shape[0]} C_loc={st0.codes_blocks.shape[0]} "
+            f"q_cap={qslot.shape[1]} {precision}", lut, qslot, st0.codes_blocks,
+            st0.norms_blocks, cfg.l_bins, cfg.chunk, cfg.metric, precision, cfg.per_bin)
+
+    # a 1% allowlist: the exact masked scan against the exact FlatIndex's
+    # filtered search (up to ties: the scan reads the int16 refine store at
+    # "high"), and the probe pool
+    rng = np.random.default_rng(34)
+    allow = np.sort(rng.choice(ctx.n, ctx.n // 100, replace=False))
+    qf = q1[:ctx.batch]
+    oracle = FlatIndex(FlatConfig(dim=ctx.dim, precision="highest", tile_n=262144),
+                       capacity=ctx.n, device=dev)
+    oracle.add(x1)
+    want = tuple(a.cpu().numpy() for a in oracle.search(qf, K, allowed=allow))
+    del oracle
+    line = []
+    for mode in ("scan", "probe"):
+        ctx.sync()
+        t0 = time.perf_counter()
+        got = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow, filter_mode=mode,
+                                                        **IVFPQ_SEARCH))
+        dt = time.perf_counter() - t0
+        fids = got[1]
+        if not np.isin(fids[fids >= 0], allow).all():
+            raise AssertionError(f"sharded_ivfpq_1m {mode}: an id outside the allowlist")
+        frec = recall_at_k(fids, want[1], K)
+        if mode == "scan":
+            differ = differing_ties("sharded_ivfpq_1m filtered scan", got, want, atol=1e-2)
+            line.append(f"scan {dt * 1e3:.1f} ms, recall {frec} against the exact filtered "
+                        f"search, {differ} ids differ (ties)")
+        else:
+            line.append(f"probe {dt * 1e3:.1f} ms, recall {frec}")
+    ctx.report("sharded_ivfpq_1m filtered 1% (first batch)", "; ".join(line))
+
+    # remove 1% and compact, timed
+    dead = rng.choice(ctx.n, ctx.n // 100, replace=False)
+    with Phase("remove") as pr:
+        removed = idx.remove(dead)
+    ids = batched_ids(ctx, idx, q1, **IVFPQ_SEARCH)
+    if removed != dead.size or np.isin(ids, dead).any():
+        raise AssertionError("sharded_ivfpq_1m: a removed id came back")
+    with Phase("compact") as pc:
+        old = idx.compact()
+    if old.size != ctx.n - dead.size or len(idx) != old.size:
+        raise AssertionError("sharded_ivfpq_1m: compact kept the wrong rows")
+    ctx.report("sharded_ivfpq_1m remove 1% + compact", f"remove {pr.elapsed_s * 1e3:.1f} ms "
+               f"(none returned), compact {pc.elapsed_s:.3f} s (a rebuild of {old.size} rows)")
+    del idx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 10,000 rows added to a build over the rest in one add (a shard's share
+    # passes its refine store's spare rows, so the flush rebuilds: JAX's
+    # rule), and 1,000 rows the same way, which take the append path
+    n_ins = ctx.n // 100
+    n0 = ctx.n - n_ins
+    line = []
+    for m in (n_ins, n_ins // 10):
+        base = ShardedIVFPQ(cfg, mesh=mesh)
+        base.build(x1[:n0])
+        before = base.state[0]
+        ctx.sync()
+        t0 = time.perf_counter()
+        base.add(x1[n0:n0 + m])
+        base.flush()
+        ctx.sync()
+        dt = time.perf_counter() - t0
+        path = "append" if base.state[0] is before else "overflow rebuild"
+        hit = float((batched_ids(ctx, base, x1[n0:n0 + m], **IVFPQ_SEARCH)[:, 0]
+                     == np.arange(n0, n0 + m)).mean())
+        line.append(f"{m} rows: {dt:.3f} s ({m / dt:.1f} rows/s, {path}), self-hit@1 {hit}")
+        if hit < 0.95 or len(base) != n0 + m:
+            raise AssertionError(f"sharded_ivfpq_1m add of {m}: self-hit@1 {hit}, len "
+                                 f"{len(base)}")
+        del base
+    ctx.report(f"sharded_ivfpq_1m add after a build over {n0}", "; ".join(line))
+
+
+def phase_sharded_pq_persist(ctx: Ctx, x1):
+    """35. ShardedPQFlat and ShardedIVFPQ at 100k: save/load round trips,
+    card == CPU on the saved files, and the exhaustive-pool case (sharded ==
+    single chip) on the card."""
+    from zvdb_tpu_torch import IVFPQConfig, IVFPQIndex, ShardedIVFPQ, ShardedPQFlat, make_mesh
+    from zvdb_tpu_torch.utils.profiling import Phase
+
+    dev = ctx.device
+    n_small = 5000 if ctx.rehearse else min(100_000, ctx.n)
+    xs = x1[:n_small]
+    qb = xs[:ctx.batch] + np.float32(0.01)
+    qc = qb[:256]
+    mesh = sharded_mesh(ctx)
+    cpu_mesh = make_mesh(n_shards=N_SHARDS, devices=["cpu"])
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for name, make, kw in (
+            ("ShardedPQFlat", lambda m: ShardedPQFlat(pq_config(ctx), mesh=m), APPROX),
+            ("ShardedIVFPQ", lambda m: ShardedIVFPQ(IVFPQConfig(dim=ctx.dim), mesh=m),
+             IVFPQ_SEARCH)):
+        path = os.path.join(ROOT, "build", f"{name}_{n_small}.npz")
+        try:
+            with Phase("build") as pb:
+                idx = make(mesh)
+                idx.build(xs)
+            before = idx.search(qb, K, **kw)[1]
+            with Phase("save") as ps:
+                idx.save(path)
+            with Phase("load") as pl:
+                back = type(idx).load(path, mesh=mesh)
+            cpu = type(idx).load(path, mesh=cpu_mesh)
+            size = os.path.getsize(path)
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+        if not torch.equal(before, back.search(qb, K, **kw)[1]):
+            raise AssertionError(f"{name}: ids differ after the save/load round trip")
+        card = tuple(a.cpu().numpy() for a in back.search(qc, K, **kw))
+        host = tuple(a.numpy() for a in cpu.search(qc, K, **kw))
+        bad = differing_ties(f"{name} card == CPU", card, host, atol=1e-3)
+        if bad > card[1].size // 100:
+            raise AssertionError(f"{name}: {bad} ids differ between the card and the CPU")
+        ctx.report(f"{name} {n_small // 1000}k save/load", f"build {pb.elapsed_s:.2f} s, save "
+                   f"{ps.elapsed_s:.2f} s, load {pl.elapsed_s:.2f} s, file {size / 1e6:.1f} "
+                   f"MB; ids equal after load; card == CPU (the file on CPU devices, the plain "
+                   f"kernels) on 256 queries: {bad} ids differ, each at a tie")
+        del idx, back, cpu
+
+    # tests/test_sharded_equivalence.py's exhaustive-pool case on the card:
+    # exhaustive probes, one bin a row and an f32 refine pool covering the
+    # corpus make the sharded index and the single chip exact over the rows
+    rng = np.random.default_rng(42)
+    cents = rng.standard_normal((24, 24)).astype(np.float32) * 4
+    xe = (cents[rng.integers(0, 24, 2000)] + rng.standard_normal((2000, 24))).astype(np.float32)
+    qe = (xe[rng.integers(0, 2000, 48)] + 0.05 * rng.standard_normal((48, 24))).astype(np.float32)
+    cfg = IVFPQConfig(dim=24, n_sub=8, n_clusters=8, nprobe=8, refine="float32", rerank=256,
+                      l_bins=1024, chunk=1024, train_sample=1024, kmeans_sample=1024)
+    single = IVFPQIndex(cfg, device=dev)
+    single.build(xe)
+    sh = ShardedIVFPQ(cfg, mesh=mesh)
+    sh.build(xe)
+
+    def same(label, a, b):
+        return differing_ties(label, tuple(t.cpu().numpy() for t in a),
+                              tuple(t.cpu().numpy() for t in b), atol=1e-3)
+
+    line = [same("exhaustive pool", sh.search(qe, K, nprobe=10 ** 6),
+                 single.search(qe, K, nprobe=8))]
+    dead = np.unique(np.argmin(((qe[:4, None, :] - xe[None]) ** 2).sum(-1), axis=1))
+    if single.remove(dead) != sh.remove(dead):
+        raise AssertionError("exhaustive pool: remove counts differ")
+    line.append(same("exhaustive pool after remove", sh.search(qe, K, nprobe=10 ** 6),
+                     single.search(qe, K, nprobe=8)))
+    allowed = np.arange(0, 2000, 3)
+    line.append(same("exhaustive pool filtered", sh.search(qe, K, nprobe=10 ** 6,
+                                                           allowed=allowed),
+                     single.search(qe, K, nprobe=8, allowed=allowed)))
+    ctx.report("ShardedIVFPQ == IVFPQIndex on an exhaustive pool (2000 x 24d, 4 shards, on "
+               "the device)", f"ids differing (ties only): plain {line[0]}, after remove "
+               f"{line[1]}, filtered {line[2]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3354,6 +3706,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     import zvdb_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
+    from zvdb_tpu_torch.bench.harness import recall_at_k
 
     ctx = Ctx(args.rehearse)
     t_start = time.perf_counter()
@@ -3410,6 +3763,11 @@ def main() -> int:
     sh_ef = phase_sharded_hnsw(ctx, x1, q1, gt, oracle, dead)
     del oracle
     phase_sharded_persist_sweep(ctx, x1, sh_ef)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_sharded_pq(ctx, x1, q1, gt, recall_at_k(pq_ids, gt, K))
+    phase_sharded_ivfpq(ctx, x1, q1, gt, recall_at_k(iv_ids, gt, K))
+    phase_sharded_pq_persist(ctx, x1)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{

@@ -99,10 +99,12 @@ def test_lazy_names():
     assert ZT.make_mesh is make_mesh and "make_hybrid_mesh" in ZT.__all__
     from zvdb_tpu_torch.parallel.sharded import ShardedHNSW
     from zvdb_tpu_torch.parallel.sharded_flat import ShardedFlat
+    from zvdb_tpu_torch.parallel.sharded_ivfpq import ShardedIVFPQ
+    from zvdb_tpu_torch.parallel.sharded_pq import ShardedPQFlat
 
     assert ZT.ShardedFlat is ShardedFlat and ZT.ShardedHNSW is ShardedHNSW
-    for name, item in (("ShardedPQFlat", "2c"), ("ShardedIVFPQ", "2c"), ("ShardedIVF", "2d"),
-                       ("ShardedCagra", "2e")):
+    assert ZT.ShardedPQFlat is ShardedPQFlat and ZT.ShardedIVFPQ is ShardedIVFPQ
+    for name, item in (("ShardedIVF", "2d"), ("ShardedCagra", "2e")):
         with pytest.raises(AttributeError, match=f"item {item}"):
             getattr(ZT, name)
     with pytest.raises(AttributeError):

@@ -1,10 +1,12 @@
 """zvdb_tpu_torch.utils.stats against zvdb_tpu/utils/stats.py (the flat case
-of tests/test_stats.py, plus CAGRA and IVF-PQ; the HNSW and IVF cases wait for
-those engines). The same state in both packages gives equal `n`,
-`total_bytes`, `component_bytes`, `degree` and `overhead_vs_raw`: the port's
-host scalars count 4 bytes each, as JAX's device scalars do. On a built
-IVF-PQ index both packages raise AttributeError: JAX's `index_stats` reads
-`state.blocks`, which IVFPQState does not have (a fault of the reference)."""
+of tests/test_stats.py, plus CAGRA, IVF-PQ and the sharded engines). The same
+state in both packages gives equal `n`, `total_bytes`, `component_bytes`,
+`degree` and `overhead_vs_raw`: the port's host scalars count 4 bytes each,
+as JAX's device scalars do, and a sharded state's bytes sum over the shards.
+On a built IVF-PQ index, sharded or not, both packages raise AttributeError:
+JAX's `index_stats` reads `state.blocks`, which IVFPQState does not have;
+on a ShardedHNSW both raise TypeError (JAX's int() of the stacked [S] `n`).
+Both are faults of the reference, kept."""
 import dataclasses
 
 import numpy as np
@@ -68,5 +70,84 @@ def test_ivfpq_stats_raise_in_both_packages(rng):
     tidx = ZT.IVFPQIndex(ZT.IVFPQConfig(**kw), device="cpu")
     tidx.build(x)
     for fn, idx in ((jax_stats, jidx), (index_stats, tidx)):
+        with pytest.raises(AttributeError, match="blocks"):
+            fn(idx)
+
+
+def _jax_mesh4():
+    from zvdb_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    return jax_mesh(n_shards=4)
+
+
+def _port_mesh4():
+    return ZT.make_mesh(n_shards=4, devices=["cpu"])
+
+
+def test_sharded_flat_stats_equal_jax(rng, tmp_path):
+    """A ShardedFlat (a list of per-shard dicts in the port, a dict of
+    stacked arrays in JAX) carried by a JAX save file."""
+    from zvdb_tpu.parallel.sharded_flat import ShardedFlat as JShardedFlat
+
+    x = rng.standard_normal((500, 16)).astype(np.float32)
+    j = JShardedFlat(ZJ.FlatConfig(dim=16), mesh=_jax_mesh4())
+    j.build(x)
+    j.save(str(tmp_path / "f.npz"))
+    t = ZT.ShardedFlat.load(str(tmp_path / "f.npz"), mesh=_port_mesh4())
+    want = {"n": 500, "total_bytes": 36000,
+            "component_bytes": {"vectors": 32000, "norms": 2000, "ids": 2000},
+            "overhead_vs_raw": 0.125}
+    assert jax_stats(j) == want and index_stats(t) == want
+
+
+@pytest.mark.parametrize("n_codes", [256, 16])
+def test_sharded_pq_stats_equal_jax(rng, tmp_path, n_codes):
+    """JAX's dict on a carried ShardedPQFlat. Unpacked codes (n_codes=256)
+    take JAX's bytes; packed ones (n_codes=16) hold the nibble layout kernel
+    B reads, half of JAX's [S, per, n_sub] code bytes, every other key equal."""
+    from zvdb_tpu.parallel.sharded_pq import ShardedPQFlat as JShardedPQFlat
+
+    x = rng.standard_normal((500, 16)).astype(np.float32)
+    cfg = dict(dim=16, n_sub=4, n_codes=n_codes, refine="int8", train_sample=256,
+               kmeans_iters=2)
+    j = JShardedPQFlat(ZJ.PQConfig(**cfg), mesh=_jax_mesh4())
+    j.build(x)
+    j.save(str(tmp_path / "p.npz"))
+    t = ZT.ShardedPQFlat.load(str(tmp_path / "p.npz"), mesh=_port_mesh4())
+    s, want = index_stats(t), jax_stats(j)
+    if n_codes == 256:
+        assert s == want
+        assert want["component_bytes"] == {"codes": 2000, "norms": 2000, "refine": 8000,
+                                           "r_scales": 2000, "ids": 2000}
+    else:
+        codes_t, codes_j = s["component_bytes"].pop("codes"), want["component_bytes"].pop("codes")
+        assert 2 * codes_t == codes_j == 2000
+        assert s["component_bytes"] == want["component_bytes"] and s["n"] == want["n"] == 500
+        assert want["total_bytes"] - s["total_bytes"] == codes_t
+    assert "overhead_vs_raw" not in s and "overhead_vs_raw" not in want
+
+
+def test_sharded_hnsw_and_ivfpq_stats_raise_in_both_packages(rng, tmp_path):
+    """Reference faults kept: JAX's index_stats takes int(st.n) of a stacked
+    HNSW state (an [S] array: TypeError) and reads `blocks` of an IVF-PQ
+    state (AttributeError); the port raises the same on its per-shard lists."""
+    from zvdb_tpu.parallel.sharded import ShardedHNSW as JShardedHNSW
+    from zvdb_tpu.parallel.sharded_ivfpq import ShardedIVFPQ as JShardedIVFPQ
+
+    x = rng.standard_normal((400, 16)).astype(np.float32)
+    jh = JShardedHNSW(ZJ.HNSWConfig(dim=16, m=4, ef_construction=16, build_batch=64),
+                      mesh=_jax_mesh4())
+    jh.build(x)
+    jh.save(str(tmp_path / "h.npz"))
+    th = ZT.ShardedHNSW.load(str(tmp_path / "h.npz"), mesh=_port_mesh4())
+    for fn, idx in ((jax_stats, jh), (index_stats, th)):
+        with pytest.raises(TypeError):
+            fn(idx)
+    cfg = dict(dim=16, n_sub=8, n_clusters=8, train_sample=400, kmeans_sample=400)
+    ji = JShardedIVFPQ(ZJ.IVFPQConfig(**cfg), mesh=_jax_mesh4())
+    ji.build(x)
+    ji.save(str(tmp_path / "i.npz"))
+    ti = ZT.ShardedIVFPQ.load(str(tmp_path / "i.npz"), mesh=_port_mesh4())
+    for fn, idx in ((jax_stats, ji), (index_stats, ti)):
         with pytest.raises(AttributeError, match="blocks"):
             fn(idx)

@@ -6,8 +6,9 @@ it and no JAX. Ported so far: the flat, PQ, IVF-PQ, CAGRA, HNSW and IVF-Flat eng
 checkpoints, search, persistence), the server in front of them, the engine
 router, the host tools (bench harness, datasets and native loader, stats,
 profiling), the sweep CLI (`python -m zvdb_tpu_torch.bench.sweep`) and the
-sharded flat and HNSW engines over a device mesh (`make_mesh`,
-`make_hybrid_mesh`, `ShardedFlat`, `ShardedHNSW`, imported on first use).
+sharded flat, HNSW, PQ and IVF-PQ engines over a device mesh (`make_mesh`,
+`make_hybrid_mesh`, `ShardedFlat`, `ShardedHNSW`, `ShardedPQFlat`,
+`ShardedIVFPQ`, imported on first use).
 
     from zvdb_tpu_torch import (HNSW, CagraConfig, CagraIndex, FlatConfig, FlatIndex,
                                 HNSWConfig, HNSWState, IVFConfig, IVFIndex, IVFPQConfig,
@@ -35,8 +36,7 @@ __all__ = ["HNSW", "CagraConfig", "CagraIndex", "FlatConfig", "FlatIndex", "HNSW
            "make_hybrid_mesh", "relative_contrast", "suggest_engine"]
 
 # the sharded engines not ported yet, and the ROADMAP.md item that ports each
-_NOT_PORTED = {"ShardedPQFlat": "2c", "ShardedIVFPQ": "2c", "ShardedIVF": "2d",
-               "ShardedCagra": "2e"}
+_NOT_PORTED = {"ShardedIVF": "2d", "ShardedCagra": "2e"}
 
 
 def __getattr__(name):
@@ -53,6 +53,14 @@ def __getattr__(name):
         from .parallel.sharded import ShardedHNSW
 
         return ShardedHNSW
+    if name == "ShardedPQFlat":
+        from .parallel.sharded_pq import ShardedPQFlat
+
+        return ShardedPQFlat
+    if name == "ShardedIVFPQ":
+        from .parallel.sharded_ivfpq import ShardedIVFPQ
+
+        return ShardedIVFPQ
     if name in _NOT_PORTED:
         raise AttributeError(f"{name} is not ported to zvdb_tpu_torch yet (ROADMAP.md queue 1 "
                              f"item {_NOT_PORTED[name]})")

@@ -353,6 +353,22 @@ def _ivfpq_append(state: IVFPQState, x: torch.Tensor, assign: torch.Tensor,
     return state
 
 
+def _centroid_scores(x: np.ndarray, cent, metric: str, device) -> torch.Tensor:
+    """pairwise_scores of host rows x against the centroids, with the
+    centroids' squared norms as the norms term for every metric (as the JAX
+    package assigns)."""
+    cent = torch.as_tensor(cent, dtype=torch.float32, device=device)
+    return D.pairwise_scores(torch.from_numpy(np.ascontiguousarray(x)).to(device), cent,
+                             D.sq_norms(cent), metric)
+
+
+def nearest_centroids(x: np.ndarray, cent, metric: str, device) -> np.ndarray:
+    """Each host row's nearest centroid (int64), in chunks of 16384 rows."""
+    out = [torch.argmin(_centroid_scores(x[lo:lo + 16384], cent, metric, device),
+                        dim=-1).cpu().numpy() for lo in range(0, x.shape[0], 16384)]
+    return np.concatenate(out).astype(np.int64) if out else np.zeros((0,), np.int64)
+
+
 def state_from_numpy(cfg: IVFPQConfig, arrays, device) -> IVFPQState:
     """The JAX package's IVFPQState arrays, as numpy (a save file's
     contents), -> the port's state on `device`. A bf16 refine store may
@@ -567,7 +583,7 @@ class IVFPQIndex:
         base = self._n_inserted - new.shape[0]
         st = self.state
         c, _, cap = st.codes_blocks.shape
-        assign = self._nearest_assign(new, st.centroids)
+        assign = nearest_centroids(new, st.centroids, cfg.metric, self.device)
         counts = st.counts.cpu().numpy()
         addc = np.bincount(assign, minlength=c)
         bsz = new.shape[0]
@@ -604,23 +620,11 @@ class IVFPQIndex:
         vb[:bsz] = True
         self.state = _ivfpq_append(st, xb, ab, vb, base, cfg.metric, cfg.refine)
 
-    def _scores_to(self, x: np.ndarray, cent, lo: int, hi: int) -> torch.Tensor:
-        """pairwise_scores of rows x[lo:hi] against the centroids, with the
-        centroids' squared norms as the norms term for every metric (as the
-        JAX package assigns)."""
-        cent = torch.as_tensor(cent, dtype=torch.float32, device=self.device)
-        return D.pairwise_scores(torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(
-            self.device), cent, D.sq_norms(cent), self.cfg.metric)
-
-    def _nearest_assign(self, x: np.ndarray, cent) -> np.ndarray:
-        out = [torch.argmin(self._scores_to(x, cent, lo, lo + 16384), dim=-1).cpu().numpy()
-               for lo in range(0, x.shape[0], 16384)]
-        return np.concatenate(out).astype(np.int64) if out else np.zeros((0,), np.int64)
-
     def _topk_assign(self, x: np.ndarray, cent, t: int) -> np.ndarray:
         """[n, t] nearest-centroid ids per row, best first (spill candidates)."""
         t = min(t, cent.shape[0])
-        out = [T.smallest_k_dense(self._scores_to(x, cent, lo, lo + 16384), t)[1].cpu().numpy()
+        out = [T.smallest_k_dense(_centroid_scores(x[lo:lo + 16384], cent, self.cfg.metric,
+                                                   self.device), t)[1].cpu().numpy()
                for lo in range(0, x.shape[0], 16384)]
         return np.concatenate(out).astype(np.int64) if out else np.zeros((0, t), np.int64)
 
@@ -700,7 +704,7 @@ class IVFPQIndex:
         cent = self.state.centroids.cpu().numpy()
         cb, rot = self.state.codebooks, self.state.rot
         self.state = None                     # frees the blocks and the refine store
-        assign = self._nearest_assign(x_all, cent)
+        assign = nearest_centroids(x_all, cent, cfg.metric, self.device)
         c = cent.shape[0]
         if n <= _REPACK_SPLIT_MAX_ROWS:
             xd = torch.from_numpy(x_all).to(self.device)

@@ -97,22 +97,23 @@ def quantize_corpus_global(x: torch.Tensor, metric: str, scale):
     return codes, norms
 
 
-def quantize_corpus(x: torch.Tensor, metric: str, bits: int = 8):
+def quantize_corpus(x: torch.Tensor, metric: str, bits: int = 8, divide: bool = False):
     """Symmetric per-vector integer quantization.
 
     bits=8 -> int8 codes (levels +-127); bits=16 -> int16 (+-32767).
     Returns (codes [..., D], scales f32 [...], sq_norms f32 [...]).
     Reconstruction: x_i ~= scales_i * codes_i; norms are exact (from f32).
-    The scales multiply by f32(1 / lim): every JAX caller is jitted, and XLA
-    compiles its `/ lim` so (a division would differ by an ulp on ~1% of
-    rows).
+    The scales multiply by f32(1 / lim), as XLA compiles the `/ lim` of
+    JAX's jitted callers (a division differs by an ulp on ~1% of rows);
+    divide=True divides, as JAX's one caller outside a jit (the sharded PQ
+    engine's encode) does.
     """
     lim, dtype = {8: (127.0, torch.int8), 16: (32767.0, torch.int16)}[bits]
     xf = x.float()
     if metric == "cosine":
         xf = normalize(xf)
-    amax = xf.abs().amax(dim=-1)
-    scales = torch.clamp(amax, min=1e-12) * (1.0 / lim)
+    amax = torch.clamp(xf.abs().amax(dim=-1), min=1e-12)
+    scales = amax / lim if divide else amax * (1.0 / lim)
     codes = torch.clamp(torch.round(xf / scales[..., None]), -lim, lim).to(dtype)
     norms = sq_norms(xf) if metric == "l2" else xf.new_zeros(xf.shape[:-1])
     return codes, scales, norms

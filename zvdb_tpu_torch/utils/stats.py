@@ -8,6 +8,14 @@ The port's states are dataclasses of tensors with a host-int `n` (and, for
 CAGRA and HNSW, a host-float `q_scale`; HNSW's `entry` and `max_level` are
 host ints too) where JAX keeps device scalars. Each such host
 scalar counts 4 bytes, as JAX's int32 / f32 scalars do, so the totals agree.
+
+A sharded engine's state is a list with one entry per shard, where JAX
+stacks the shards on a leading axis. Its bytes are summed over the shards
+under the same keys, which is JAX's stacked count wherever the layouts
+agree. Where JAX's `index_stats` fails on a stacked state, the port raises
+the same exception type: a graph per shard (ShardedHNSW) raises TypeError,
+as JAX's `int(st.n)` does on an [S] array, and an IVF-PQ state per shard
+(ShardedIVFPQ) raises AttributeError, as JAX's `st.blocks` does.
 """
 from __future__ import annotations
 
@@ -31,13 +39,25 @@ def _state_bytes(state) -> Dict[str, int]:
     return out
 
 
+def _shards_bytes(shards: list) -> Dict[str, int]:
+    """Bytes by key summed over the shards (dicts of tensors or dataclasses)."""
+    out: Dict[str, int] = {}
+    for sh in shards:
+        part = ({k: v.numel() * v.element_size() for k, v in sh.items()}
+                if isinstance(sh, dict) else _state_bytes(sh))
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def index_stats(index: Any) -> Dict[str, Any]:
     """Engine-agnostic stats: memory by component, overhead vs raw vectors,
     and (for the graph engines) degree and level distributions."""
     st = getattr(index, "state", None)
     if st is None:
         return {"n": len(index), "total_bytes": 0}
-    comp = _state_bytes(st)
+    sharded = isinstance(st, list)
+    comp = _shards_bytes(st) if sharded else _state_bytes(st)
     total = sum(comp.values())
     stats: Dict[str, Any] = {
         "n": len(index),
@@ -52,6 +72,16 @@ def index_stats(index: Any) -> Dict[str, Any]:
         raw = comp["blocks"]
     if raw:
         stats["overhead_vs_raw"] = (total - raw) / max(raw, 1)
+
+    if sharded:
+        first = st[0] if st else None
+        if hasattr(first, "nbr0") or hasattr(first, "nbrs"):
+            raise TypeError("index_stats: a sharded graph state has one n a shard (JAX's "
+                            "int(st.n) fails on the stacked [S] array)")
+        if hasattr(first, "counts") and not hasattr(first, "blocks"):
+            raise AttributeError(f"{type(first).__name__!r} object has no attribute 'blocks' "
+                                 "(JAX's index_stats reads it on every IVF state)")
+        return stats
 
     # graph structure (HNSW nbr0 and levels, CAGRA nbrs)
     if hasattr(st, "nbr0") or hasattr(st, "nbrs"):
