@@ -274,7 +274,42 @@ Phases, in order; any failure raises and the script exits non-zero:
                   (ids equal; files under build/ and deleted), each file
                   loaded onto CPU devices too (the plain kernels: ids equal
                   to the card's up to ties), and ShardedIVFPQ == the
-                  single-chip IVFPQIndex on an exhaustive pool on the card.
+                  single-chip IVFPQIndex on an exhaustive pool on the card;
+ 36. sharded ivf - sharded_ivf_1m: ivf_1m's IVFConfig over 4 shards (one
+                  single-chip build, then the clusters placed largest first
+                  on the least-loaded shard), the build timed whole and in
+                  its two parts; global nprobe {2, 4, 8}: recall@10, QPS,
+                  the local probes, the scan each shard takes (pair or
+                  grouped) and the probe pairs the grouped scan's q_cap
+                  drops, per-shard and merge ms; one traced batch (the idle
+                  share); no kernel launched; recall@10 >= 0.95 and >=
+                  phase 27's minus 0.005 at nprobe 8; a 1% allowlist in
+                  "scan" (against the exact filtered truth up to ties) and
+                  "probe"; remove 1% (none comes back) and compact, timed;
+                  1,000 and 10,000 rows added to builds over 99% (rows/s,
+                  the path taken, the host routing's seconds, self-hit@1 >=
+                  0.95); then sharded_ivf_1m_int8 (phase 28's config) at
+                  nprobe 4: recall@10 >= 0.95, QPS, the probe filter;
+ 37. sharded cagra - sharded_cagra_1m: cagra_1m's CagraConfig over 4 x
+                  250,000 rows, the shards' graphs built together by
+                  build_knn_graph_multi (seconds, points/s beside phase
+                  14's, peak device memory; kernel D's launches equal to
+                  the shards' sum of ceil(c_blocks/cc), all on the tensor
+                  cores), D on shard 0's own first chunk against its plain
+                  version in every precision; searched in batches of 2048
+                  (recall@10 >= 0.95 beside phase 14's, QPS, per-shard and
+                  merge ms, a traced batch, no kernel launched); 1% removed
+                  (none comes back), a 10% allowlist in "scan" (against the
+                  exact FlatIndex with the same tombstones, up to ties) and
+                  "beam"; the last 1% inserted in requests of 100 into a
+                  build over the rest (rows/s, the growth and the reseed if
+                  they happen, self-hit@1 >= 0.95);
+ 38. sharded ivf/cagra persist - both engines at 100k: save/load round
+                  trips (files under build/ and deleted), each file loaded
+                  onto CPU devices too (ids equal to the card's up to
+                  ties), ShardedIVF == the single-chip IVFIndex on an
+                  exhaustive pool, and build_knn_graph_multi ==
+                  build_knn_graph shard by shard (nbrs equal), on the card.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -1537,8 +1572,9 @@ def phase_cagra_main(ctx: Ctx, x1, q1, gt):
     lb = idx.build_stats
     expected = sum(-(-cb // lb["cc"]) for cb in lb["c_blocks"])
     rec = recall_at_k(ids, gt, K)
+    ctx.cagra_pps = ctx.n / build_s
     ctx.report("cagra_1m build points/s (first build, rows already on the device)",
-               ctx.n / build_s)
+               ctx.cagra_pps)
     ctx.report("cagra_1m build geometry", f"c={lb['c']} bcap={lb['bcap']} cc={lb['cc']} "
                f"kc={lb['kc']} blocks per pass {lb['c_blocks']}")
     ctx.report("cagra_1m kernel launches", f"build: block_bins {after_build['D']}, of them on "
@@ -2775,7 +2811,7 @@ def phase_ivf_main(ctx: Ctx, x1, q1, gt):
                f"{st['total_bytes'] / 1e9:.3f}")
 
     reset_kernel_counts()
-    np_, ids, _ = ivf_sweep(ctx, idx, q1, gt, IVF_NPROBES, "ivf_1m")
+    np_, ids, recs = ivf_sweep(ctx, idx, q1, gt, IVF_NPROBES, "ivf_1m")
     launched = kernel_counts()
     if any(launched.values()):
         raise AssertionError(f"the IVF search launched kernels: {launched}")
@@ -2850,7 +2886,7 @@ def phase_ivf_main(ctx: Ctx, x1, q1, gt):
     if hit < 0.95:
         raise AssertionError(f"self-hit@1 of the added rows {hit} < 0.95")
     del add_idx, xd
-    return np_
+    return np_, recs
 
 
 def phase_ivf_int8(ctx: Ctx, x1, q1, gt):
@@ -2890,7 +2926,7 @@ def phase_ivf_int8(ctx: Ctx, x1, q1, gt):
                f"rows {idx.state.rerank_vecs.shape[0]}, state GB {st['total_bytes'] / 1e9:.3f} "
                f"({ {k: round(v / 1e9, 3) for k, v in st['component_bytes'].items()} })")
     reset_kernel_counts()
-    np_, ids, _ = ivf_sweep(ctx, idx, q1, gt, IVF8_NPROBES, "ivf_1m_int8")
+    np_, ids, recs = ivf_sweep(ctx, idx, q1, gt, IVF8_NPROBES, "ivf_1m_int8")
     if any(kernel_counts().values()):
         raise AssertionError("the int8 IVF search launched kernels")
     ivf_scan_check(ctx, idx, q1, np_, "ivf_1m_int8")
@@ -2914,6 +2950,7 @@ def phase_ivf_int8(ctx: Ctx, x1, q1, gt):
     if len(idx) != ctx.n - len(dead) or np.isin(old, dead).any():
         raise AssertionError("compact kept a removed row or lost a live one")
     del idx, xd
+    return recs
 
 
 def phase_ivf_checkpoint_sweep(ctx: Ctx, x1):
@@ -3697,6 +3734,449 @@ def phase_sharded_pq_persist(ctx: Ctx, x1):
                f"{line[1]}, filtered {line[2]}")
 
 
+def ivf_shard_scans(ctx: Ctx, idx, q1, p: int):
+    """What each shard's scan is at global nprobe p on the first batch: the
+    pair or grouped scan (index/ivf.py:use_pair_scan on the shard's C_loc)
+    and, for the grouped one, the probe pairs its q_cap drops."""
+    from zvdb_tpu_torch.index import ivf as TI
+    from zvdb_tpu_torch.ops import distance as D
+    from zvdb_tpu_torch.ops import topk as T
+
+    cfg = idx.cfg
+    qp = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(ctx.device), cfg.metric)
+    b = qp.shape[0]
+    c = idx.state[0].centroids.shape[0]
+    p_loc = min(max(1, -(-p // N_SHARDS) + 1), c)
+    out = []
+    for st, cm in zip(idx.state, idx.c_mask):
+        if TI.use_pair_scan(c, b, p_loc):
+            out.append("pair")
+            continue
+        cs = D.pairwise_scores(qp, st.centroids, st.c_norms, cfg.metric, precision="highest")
+        _, probes = T.smallest_k_dense(torch.where(cm[None, :], cs, float("inf")), p_loc)
+        qslot, _ = TI._slot_pairs(probes, b, p_loc, c, TI.group_q_cap(b, p_loc, c, 4.0))
+        dropped = b * p_loc - int((qslot >= 0).sum())
+        out.append(f"grouped (q_cap {qslot.shape[1]}, {dropped} of {b * p_loc} pairs dropped, "
+                   f"{100 * dropped / (b * p_loc):.2f}%)")
+    return p_loc, out
+
+
+def phase_sharded_ivf(ctx: Ctx, x1, q1, gt, ivf_recs: dict, ivf8_recs: dict):
+    """36. sharded_ivf_1m and sharded_ivf_1m_int8: phases 27's and 28's
+    IVFConfigs over 4 shards on the card (one single-chip build, then the
+    clusters placed largest first on the least-loaded shard). No kernel."""
+    from zvdb_tpu_torch import FlatConfig, FlatIndex, IVFIndex, ShardedIVF
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.profiling import Phase
+
+    dev = ctx.device
+    cfg = ivf_config(ctx)
+    mesh = sharded_mesh(ctx)
+    ctx.report("sharded_ivf_1m config", f"{cfg}, {N_SHARDS} shards")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    with Phase("sharded_ivf_1m build") as p:
+        idx = ShardedIVF(cfg, mesh=mesh)
+        idx.build(x1)
+    with Phase("single-chip build") as ps:      # the same build in its two parts
+        single = IVFIndex(cfg, device=dev)
+        single.build(x1)
+    with Phase("placement") as pp:
+        ShardedIVF(cfg, mesh=mesh)._place(single.state, x1)
+    del single
+    st0 = idx.state[0]
+    ctx.report("sharded_ivf_1m build", f"{p.elapsed_s:.3f} s ({ctx.n / p.elapsed_s:.1f} points/s "
+               f"from host rows); again in parts: single-chip build {ps.elapsed_s:.3f} s, "
+               f"placement {pp.elapsed_s:.3f} s; clusters {idx._cluster_of.shape[0]}, C_loc "
+               f"{st0.centroids.shape[0]} (real a shard {[int(m.sum()) for m in idx.c_mask]}),"
+               f" cap {st0.blocks.shape[1]}, rows a shard {[st.n for st in idx.state]}")
+    if dev.type == "cuda":
+        ctx.report("sharded_ivf_1m peak device memory GB (the builds, max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    recs = {}
+    for p_ in IVF_NPROBES:
+        ids = batched_ids(ctx, idx, q1, nprobe=p_)
+        recs[p_] = recall_at_k(ids, gt, K)
+        qps = search_qps(ctx, idx, q1, search_kwargs={"nprobe": p_})
+        p_loc, scans = ivf_shard_scans(ctx, idx, q1, p_)
+        ctx.report(f"sharded_ivf_1m nprobe={p_} ({p_loc} local probes a shard)",
+                   f"recall@10 {recs[p_]} (ivf_1m {ivf_recs.get(p_)}), QPS (3 runs) "
+                   f"{[round(v, 1) for v in qps]}; scans at B={ctx.batch}: {scans}")
+        shard_times(ctx, idx, q1, f"sharded_ivf_1m nprobe={p_}", nprobe=p_)
+    trace_split(ctx, f"sharded_ivf_1m one traced batch of {ctx.batch} (nprobe=8)",
+                lambda: idx.search(q1[:ctx.batch], K, nprobe=8))
+    launched = kernel_counts()
+    if any(launched.values()):
+        raise AssertionError(f"the sharded IVF path launched kernels: {launched}")
+    ctx.report("sharded_ivf_1m kernel launches (build and search, all nprobes)", "none of A-G")
+    if recs[8] < 0.95 or recs[8] < ivf_recs[8] - 0.005:
+        raise AssertionError(f"sharded_ivf_1m recall@10 {recs[8]} at nprobe 8 < max(0.95, "
+                             f"{ivf_recs[8]} - 0.005)")
+
+    # a 1% allowlist: the exact masked scan against the exact FlatIndex's
+    # filtered search (up to ties), and the probe pool
+    rng = np.random.default_rng(36)
+    allow = np.sort(rng.choice(ctx.n, ctx.n // 100, replace=False))
+    qf = q1[:ctx.batch]
+    oracle = FlatIndex(FlatConfig(dim=ctx.dim, precision="highest", tile_n=262144),
+                       capacity=ctx.n, device=dev)
+    oracle.add(x1)
+    want = tuple(a.cpu().numpy() for a in oracle.search(qf, K, allowed=allow))
+    del oracle
+    line = []
+    for mode in ("scan", "probe"):
+        ctx.sync()
+        t0 = time.perf_counter()
+        got = tuple(a.cpu().numpy() for a in idx.search(qf, K, nprobe=8, allowed=allow,
+                                                        filter_mode=mode))
+        dt = time.perf_counter() - t0
+        if not np.isin(got[1][got[1] >= 0], allow).all():
+            raise AssertionError(f"sharded_ivf_1m {mode}: an id outside the allowlist")
+        frec = recall_at_k(got[1], want[1], K)
+        if mode == "scan":
+            differ = differing_ties("sharded_ivf_1m filtered scan", got, want, atol=1e-3)
+            line.append(f"scan {dt * 1e3:.1f} ms, recall {frec} against the exact filtered "
+                        f"search, {differ} ids differ (ties)")
+        else:
+            line.append(f"probe {dt * 1e3:.1f} ms (the first converts the index to local ids "
+                        f"and id maps), recall {frec}")
+    ctx.report("sharded_ivf_1m filtered 1% (first batch, nprobe=8)", "; ".join(line))
+
+    # remove 1% and compact, timed
+    dead = rng.choice(ctx.n, ctx.n // 100, replace=False)
+    with Phase("remove") as pr:
+        removed = idx.remove(dead)
+    ids = batched_ids(ctx, idx, q1, nprobe=8)
+    if removed != dead.size or np.isin(ids, dead).any():
+        raise AssertionError("sharded_ivf_1m: a removed id came back")
+    with Phase("compact") as pc:
+        old = idx.compact()
+    if old.size != ctx.n - dead.size or len(idx) != old.size:
+        raise AssertionError("sharded_ivf_1m: compact kept the wrong rows")
+    ctx.report("sharded_ivf_1m remove 1% + compact", f"remove {pr.elapsed_s * 1e3:.1f} ms "
+               f"(none returned), compact {pc.elapsed_s:.3f} s (a rebuild of {old.size} rows)")
+    del idx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 1,000 and 10,000 rows added to builds over 99% of the rows; the host
+    # routing (numpy, JAX's expression) timed inside the add
+    n0 = ctx.n - ctx.n // 100
+    line = []
+    for m in (ctx.n // 1000, ctx.n // 100):
+        base = ShardedIVF(cfg, mesh=mesh)
+        base.build(x1[:n0])
+        before = base.state[0].blocks
+        route_s = []
+
+        def timed_route(rows, route=base._route):
+            t0 = time.perf_counter()
+            out = route(rows)
+            route_s.append(time.perf_counter() - t0)
+            return out
+
+        base._route = timed_route
+        ctx.sync()
+        t0 = time.perf_counter()
+        base.add(x1[n0:n0 + m])
+        base.flush()
+        ctx.sync()
+        dt = time.perf_counter() - t0
+        path = "append" if base.state[0].blocks is before else "overflow rebuild"
+        hit = float((batched_ids(ctx, base, x1[n0:n0 + m], nprobe=8)[:, 0]
+                     == np.arange(n0, n0 + m)).mean())
+        line.append(f"{m} rows: {dt:.3f} s ({m / dt:.1f} rows/s, {path}; of it the host "
+                    f"routing {sum(route_s):.3f} s), self-hit@1 {hit}")
+        if hit < 0.95 or len(base) != n0 + m:
+            raise AssertionError(f"sharded_ivf_1m add of {m}: self-hit@1 {hit}, len {len(base)}")
+        del base
+    ctx.report(f"sharded_ivf_1m add after a build over {n0}", "; ".join(line))
+
+    # sharded_ivf_1m_int8: residual codes, the shadow stores, the rerank
+    cfg8 = ivf8_config(ctx)
+    ctx.report("sharded_ivf_1m_int8 config", f"{cfg8}, {N_SHARDS} shards")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    with Phase("sharded_ivf_1m_int8 build") as p:
+        idx = ShardedIVF(cfg8, mesh=mesh)
+        idx.build(x1)
+    ids = batched_ids(ctx, idx, q1, nprobe=4)
+    rec = recall_at_k(ids, gt, K)
+    qps = search_qps(ctx, idx, q1, search_kwargs={"nprobe": 4})
+    p_loc, scans = ivf_shard_scans(ctx, idx, q1, 4)
+    st0 = idx.state[0]
+    ctx.report("sharded_ivf_1m_int8 build + nprobe=4", f"build {p.elapsed_s:.3f} s "
+               f"({ctx.n / p.elapsed_s:.1f} points/s), clusters {idx._cluster_of.shape[0]}, "
+               f"C_loc {st0.centroids.shape[0]}, cap {st0.blocks.shape[1]}, shadow rows a shard "
+               f"{st0.rerank_vecs.shape[0]}; recall@10 {rec} (ivf_1m_int8 {ivf8_recs.get(4)}), "
+               f"{p_loc} local probes, QPS (3 runs) {[round(v, 1) for v in qps]}; scans {scans}")
+    if dev.type == "cuda":
+        ctx.report("sharded_ivf_1m_int8 peak device memory GB (build + search)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    shard_times(ctx, idx, q1, "sharded_ivf_1m_int8 nprobe=4", nprobe=4)
+    ctx.sync()
+    t0 = time.perf_counter()
+    got = idx.search(qf, K, nprobe=4, allowed=allow, filter_mode="probe")[1].cpu().numpy()
+    dt = time.perf_counter() - t0
+    if not np.isin(got[got >= 0], allow).all():
+        raise AssertionError("sharded_ivf_1m_int8 probe filter: an id outside the allowlist")
+    ctx.report("sharded_ivf_1m_int8 filtered 1% in probe mode (int8 has no exact row form)",
+               f"{dt * 1e3:.1f} ms, recall {recall_at_k(got, want[1], K)} against the exact "
+               "filtered search")
+    if any(kernel_counts().values()):
+        raise AssertionError(f"the sharded int8 IVF path launched kernels: {kernel_counts()}")
+    if rec < 0.95:
+        raise AssertionError(f"sharded_ivf_1m_int8 recall@10 {rec} < 0.95 at nprobe 4")
+    del idx
+
+
+def phase_sharded_cagra(ctx: Ctx, x1, q1, gt, cagra_recall: float):
+    """37. sharded_cagra_1m: phase 14's CagraConfig over 4 x 250,000 rows,
+    the shards' graphs built together by build_knn_graph_multi (kernel D in
+    every shard's cluster-kNN build), searched shard by shard."""
+    from zvdb_tpu_torch import FlatConfig, FlatIndex, ShardedCagra
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.utils.profiling import Phase
+
+    dev = ctx.device
+    cfg = cagra_config(ctx)
+    mesh = sharded_mesh(ctx)
+    ctx.report("sharded_cagra_1m config", f"{cfg}, {N_SHARDS} shards")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    ctx.sync()
+    t0 = time.perf_counter()
+    idx = ShardedCagra(cfg, mesh=mesh)
+    idx.build(x1)
+    ctx.sync()
+    build_s = time.perf_counter() - t0
+    built = kernel_counts()
+    expected = sum(-(-cb // st["cc"]) for st in idx.build_stats for cb in st["c_blocks"])
+    ctx.report("sharded_cagra_1m build", f"{build_s:.3f} s, {ctx.n / build_s:.1f} points/s from "
+               f"host rows (cagra_1m, phase 14, from device rows: "
+               f"{getattr(ctx, 'cagra_pps', float('nan')):.1f}); shard_cap {idx.shard_cap}, "
+               f"anchors a shard {idx.state[0].anchors.shape[0]}; per shard c / bcap / cc / "
+               f"blocks per pass " + "; ".join(
+                   f"{st['c']} / {st['bcap']} / {st['cc']} / {st['c_blocks']}"
+                   for st in idx.build_stats))
+    ctx.report("sharded_cagra_1m build kernel launches",
+               f"block_bins {built['D']}, of them on the tensor cores {built['D_mma']} "
+               f"(expected the shards' sum of ceil(c_blocks/cc) = {expected}); all: {built}")
+    if dev.type == "cuda":
+        ctx.report("sharded_cagra_1m build peak device memory GB (max_memory_allocated)",
+                   torch.cuda.max_memory_allocated() / 1e9)
+    others = sum(v for k, v in built.items() if k not in ("D", "D_mma"))
+    if not ctx.rehearse and (built["D"] != expected or built["D_mma"] != expected or others):
+        raise AssertionError(f"sharded_cagra_1m build launched {built}, expected D == D_mma == "
+                             f"{expected} only")
+
+    # kernel D on shard 0's own first chunk (its last pass), against its plain version
+    bp = idx.build_stats[0]["first_chunk"]
+    xs0 = torch.from_numpy(x1[:-(-ctx.n // N_SHARDS)]).to(dev)
+    valid = bp >= 0
+    safe = bp.clamp(min=0).long()
+    v = xs0[safe]
+    vn = torch.where(valid, (xs0 * xs0).sum(-1)[safe], float("inf"))
+    for precision in ("high", "default", "highest"):
+        compare_block_case(ctx, f"block shard-0 chunk {tuple(v.shape)} {precision}", v, vn, 128,
+                           "l2", precision)
+    del xs0, v, vn
+
+    reset_kernel_counts()
+    ids = batched_ids(ctx, idx, q1, **CAGRA_SEARCH)
+    rec = recall_at_k(ids, gt, K)
+    ctx.report("sharded_cagra_1m recall@10 (ef=12)", f"{rec} (cagra_1m, phase 14: "
+               f"{cagra_recall})")
+    ctx.report(f"sharded_cagra_1m search QPS (batches of {ctx.batch}, 3 runs)",
+               search_qps(ctx, idx, q1, search_kwargs=CAGRA_SEARCH))
+    shard_times(ctx, idx, q1, "sharded_cagra_1m", **CAGRA_SEARCH)
+    trace_split(ctx, f"sharded_cagra_1m one traced batch of {ctx.batch}",
+                lambda: idx.search(q1[:ctx.batch], K, **CAGRA_SEARCH))
+    if any(kernel_counts().values()):
+        raise AssertionError(f"sharded_cagra_1m search launched kernels: {kernel_counts()}")
+    if rec < 0.95:
+        raise AssertionError(f"sharded_cagra_1m recall@10 {rec} < 0.95")
+
+    # remove 1%, then a 10% allowlist: "scan" against the exact FlatIndex
+    # with the same tombstones (up to ties), "beam" by its recall
+    rng = np.random.default_rng(37)
+    dead = rng.choice(ctx.n, ctx.n // 100, replace=False)
+    with Phase("remove") as pr:
+        removed = idx.remove(dead)
+    ids = batched_ids(ctx, idx, q1, **CAGRA_SEARCH)
+    if removed != dead.size or np.isin(ids, dead).any():
+        raise AssertionError("sharded_cagra_1m: a removed id came back")
+    oracle = FlatIndex(FlatConfig(dim=ctx.dim, precision="highest", tile_n=262144),
+                       capacity=ctx.n, device=dev)
+    oracle.add(x1)
+    oracle.remove(dead)
+    qf = q1[:ctx.batch]
+    allow = np.sort(rng.choice(ctx.n, ctx.n // 10, replace=False))
+    want = tuple(a.cpu().numpy() for a in oracle.search(qf, K, allowed=allow))
+    del oracle
+    line = []
+    for mode in ("scan", "beam"):
+        ctx.sync()
+        t0 = time.perf_counter()
+        got = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow, filter_mode=mode))
+        dt = time.perf_counter() - t0
+        if not np.isin(got[1][got[1] >= 0], allow).all() or np.isin(got[1], dead).any():
+            raise AssertionError(f"sharded_cagra_1m {mode}: an id outside the allowlist or "
+                                 "removed")
+        frec = recall_at_k(got[1], want[1], K)
+        if mode == "scan":
+            # the scan's products are the config's bf16x3 ("high"): atol 1e-2
+            differ = differing_ties("sharded_cagra_1m filtered scan", got, want, atol=1e-2)
+            line.append(f"scan {dt * 1e3:.1f} ms, {differ} ids differ from the exact filtered "
+                        f"search (ties), recall {frec}")
+        else:
+            line.append(f"beam {dt * 1e3:.1f} ms, recall {frec}")
+    ctx.report("sharded_cagra_1m remove 1% + a 10% allowlist (first batch)",
+               f"{dead.size} removed in {pr.elapsed_s * 1e3:.1f} ms, none returned; "
+               + "; ".join(line))
+    del idx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the last 1% inserted in requests of 100 into a build over the rest
+    n_ins, req = ctx.n // 100, 100
+    n0 = ctx.n - n_ins
+    base = ShardedCagra(cfg, mesh=mesh)
+    base.build(x1[:n0])
+    cap0, anchor_n0 = base.shard_cap, base._anchor_n
+    a_rows0 = base.state[0].a_rows.clone()
+    reset_kernel_counts()
+    ctx.sync()
+    t0 = time.perf_counter()
+    for lo in range(n0, ctx.n, req):
+        base.insert(x1[lo:lo + req])
+    base.flush()
+    ctx.sync()
+    dt = time.perf_counter() - t0
+    grew = base.shard_cap != cap0
+    reseeded = base._anchor_n != anchor_n0 or not torch.equal(base.state[0].a_rows, a_rows0)
+    hit = float((batched_ids(ctx, base, x1[n0:], **CAGRA_SEARCH)[:, 0]
+                 == np.arange(n0, ctx.n)).mean())
+    rec = recall_at_k(batched_ids(ctx, base, q1, **CAGRA_SEARCH), gt, K)
+    ctx.report(f"sharded_cagra_1m insert of {n_ins} rows in requests of {req} after a build "
+               f"over {n0}", f"{dt:.3f} s ({n_ins / dt:.1f} rows/s); shard_cap {cap0} -> "
+               f"{base.shard_cap} ({'grown' if grew else 'no growth'}), anchors "
+               f"{'reseeded' if reseeded else 'kept (under the reseed threshold)'}; self-hit@1 "
+               f"{hit}, recall@10 after {rec}; kernels {kernel_counts()}")
+    if hit < 0.95 or len(base) != ctx.n:
+        raise AssertionError(f"sharded_cagra_1m insert: self-hit@1 {hit}, len {len(base)}")
+    del base
+
+
+def phase_sharded_ivf_cagra_persist(ctx: Ctx, x1):
+    """38. ShardedIVF and ShardedCagra at 100k: save/load round trips, card
+    == CPU on the saved files, ShardedIVF == IVFIndex on an exhaustive pool,
+    and build_knn_graph_multi == build_knn_graph shard by shard, on the card."""
+    from zvdb_tpu_torch import IVFConfig, IVFIndex, ShardedCagra, ShardedIVF, make_mesh
+    from zvdb_tpu_torch.index import knn_graph as TK
+    from zvdb_tpu_torch.parallel.sharded_cagra import shard_generators
+    from zvdb_tpu_torch.utils.profiling import Phase
+
+    dev = ctx.device
+    n_small = 5000 if ctx.rehearse else min(100_000, ctx.n)
+    xs = x1[:n_small]
+    qb = xs[:ctx.batch] + np.float32(0.01)
+    qc = qb[:256]
+    mesh = sharded_mesh(ctx)
+    cpu_mesh = make_mesh(n_shards=N_SHARDS, devices=["cpu"])
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for name, make, kw in (
+            ("ShardedIVF", lambda m: ShardedIVF(ivf_config(ctx), mesh=m), {"nprobe": 8}),
+            ("ShardedCagra", lambda m: ShardedCagra(cagra_config(ctx), mesh=m), CAGRA_SEARCH)):
+        path = os.path.join(ROOT, "build", f"{name}_{n_small}.npz")
+        try:
+            with Phase("build") as pb:
+                idx = make(mesh)
+                idx.build(xs)
+            before = idx.search(qb, K, **kw)[1]
+            with Phase("save") as ps:
+                idx.save(path)
+            with Phase("load") as pl:
+                back = type(idx).load(path, mesh=mesh)
+            cpu = type(idx).load(path, mesh=cpu_mesh)
+            size = os.path.getsize(path)
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+        if not torch.equal(before, back.search(qb, K, **kw)[1]):
+            raise AssertionError(f"{name}: ids differ after the save/load round trip")
+        card = tuple(a.cpu().numpy() for a in back.search(qc, K, **kw))
+        host = tuple(a.numpy() for a in cpu.search(qc, K, **kw))
+        bad = differing_ties(f"{name} card == CPU", card, host, atol=1e-3)
+        if bad > card[1].size // 100:
+            raise AssertionError(f"{name}: {bad} ids differ between the card and the CPU")
+        ctx.report(f"{name} {n_small // 1000}k save/load", f"build {pb.elapsed_s:.2f} s, save "
+                   f"{ps.elapsed_s:.2f} s, load {pl.elapsed_s:.2f} s, file {size / 1e6:.1f} "
+                   f"MB; ids equal after load; card == CPU (the file on CPU devices) on 256 "
+                   f"queries: {bad} ids differ, each at a tie")
+        del idx, back, cpu
+
+    # every cluster probed: the sharded index answers as the single chip
+    rng = np.random.default_rng(42)
+    cents = rng.standard_normal((24, 24)).astype(np.float32) * 4
+    xe = (cents[rng.integers(0, 24, 2000)] + rng.standard_normal((2000, 24))).astype(np.float32)
+    qe = (xe[rng.integers(0, 2000, 48)] + 0.05 * rng.standard_normal((48, 24))).astype(np.float32)
+    cfg = IVFConfig(dim=24, n_clusters=16, nprobe=16)
+    single = IVFIndex(cfg, device=dev)
+    single.build(xe)
+    sh = ShardedIVF(cfg, mesh=mesh)
+    sh.build(xe)
+
+    def same(label, a, b):
+        return differing_ties(label, tuple(t.cpu().numpy() for t in a),
+                              tuple(t.cpu().numpy() for t in b), atol=1e-3)
+
+    line = [same("exhaustive pool", sh.search(qe, K, nprobe=10 ** 6),
+                 single.search(qe, K, nprobe=10 ** 6))]
+    dead = np.unique(np.argmin(((qe[:4, None, :] - xe[None]) ** 2).sum(-1), axis=1))
+    if single.remove(dead) != sh.remove(dead):
+        raise AssertionError("exhaustive pool: remove counts differ")
+    line.append(same("exhaustive pool after remove", sh.search(qe, K, nprobe=10 ** 6),
+                     single.search(qe, K, nprobe=10 ** 6)))
+    allowed = np.arange(0, 2000, 3)
+    for mode in ("scan", "probe"):
+        line.append(same(f"exhaustive pool filtered ({mode})",
+                         sh.search(qe, K, nprobe=10 ** 6, allowed=allowed, filter_mode=mode),
+                         single.search(qe, K, nprobe=10 ** 6, allowed=allowed,
+                                       filter_mode=mode)))
+    ctx.report("ShardedIVF == IVFIndex on an exhaustive pool (2000 x 24d, 4 shards, on the "
+               "device)", f"ids differing (ties only): plain {line[0]}, after remove {line[1]}, "
+               f"filtered scan {line[2]}, probe {line[3]}")
+
+    # build_knn_graph_multi == build_knn_graph shard by shard, on the card
+    cc = cagra_config(ctx)
+    per = -(-n_small // N_SHARDS)
+    parts = [xs[i * per:(i + 1) * per] for i in range(N_SHARDS)]
+    kw = dict(metric=cc.metric, block=cc.block, spill=cc.spill, passes=cc.passes,
+              kmeans_iters=cc.kmeans_iters, alpha=cc.alpha, reps=cc.seed_reps, n_long=cc.n_long,
+              kc_per_view=cc.kc_per_view, prune_cap=cc.prune_cap, block_topk=cc.block_topk,
+              kmeans_sample=cc.kmeans_sample)
+    with Phase("multi") as pm:
+        multi = TK.build_knn_graph_multi(parts, cc.degree,
+                                         [shard_generators(cc.seed, si)[0]
+                                          for si in range(N_SHARDS)],
+                                         devices=[dev] * N_SHARDS, precision=cc.precision, **kw)
+    with Phase("one by one") as po:
+        one = [TK.build_knn_graph(part, cc.degree, shard_generators(cc.seed, si)[0], device=dev,
+                                  precision=cc.precision, **kw)
+               for si, part in enumerate(parts)]
+    equal = [torch.equal(a[0], b[0]) for a, b in zip(multi, one)]
+    ctx.report(f"build_knn_graph_multi vs build_knn_graph shard by shard ({N_SHARDS} x {per} "
+               "rows, on the device)", f"nbrs equal {equal}; {pm.elapsed_s:.3f} s interleaved, "
+               f"{po.elapsed_s:.3f} s one by one")
+    if not all(equal):
+        raise AssertionError("build_knn_graph_multi differs from the per-shard builds")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3754,8 +4234,8 @@ def main() -> int:
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
     phase_ivf_carry(ctx, x1)
-    phase_ivf_main(ctx, x1, q1, gt)
-    phase_ivf_int8(ctx, x1, q1, gt)
+    _, ivf_recs = phase_ivf_main(ctx, x1, q1, gt)
+    ivf8_recs = phase_ivf_int8(ctx, x1, q1, gt)
     phase_ivf_checkpoint_sweep(ctx, x1)
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3768,6 +4248,13 @@ def main() -> int:
     phase_sharded_pq(ctx, x1, q1, gt, recall_at_k(pq_ids, gt, K))
     phase_sharded_ivfpq(ctx, x1, q1, gt, recall_at_k(iv_ids, gt, K))
     phase_sharded_pq_persist(ctx, x1)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_sharded_ivf(ctx, x1, q1, gt, ivf_recs, ivf8_recs)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_sharded_cagra(ctx, x1, q1, gt, recall_at_k(cg_ids, gt, K))
+    phase_sharded_ivf_cagra_persist(ctx, x1)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{

@@ -25,6 +25,7 @@ import zvdb_tpu_torch.utils.router, zvdb_tpu_torch.utils.stats, zvdb_tpu_torch.u
 import zvdb_tpu_torch.parallel.mesh, zvdb_tpu_torch.parallel.sharded
 import zvdb_tpu_torch.parallel.sharded_flat, zvdb_tpu_torch.parallel.scan_filter
 import zvdb_tpu_torch.parallel.sharded_pq, zvdb_tpu_torch.parallel.sharded_ivfpq
+import zvdb_tpu_torch.parallel.sharded_ivf, zvdb_tpu_torch.parallel.sharded_cagra
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(bad)

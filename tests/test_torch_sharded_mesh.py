@@ -98,14 +98,15 @@ def test_default_devices_are_the_gpus():
 def test_lazy_names():
     assert ZT.make_mesh is make_mesh and "make_hybrid_mesh" in ZT.__all__
     from zvdb_tpu_torch.parallel.sharded import ShardedHNSW
+    from zvdb_tpu_torch.parallel.sharded_cagra import ShardedCagra
     from zvdb_tpu_torch.parallel.sharded_flat import ShardedFlat
+    from zvdb_tpu_torch.parallel.sharded_ivf import ShardedIVF
     from zvdb_tpu_torch.parallel.sharded_ivfpq import ShardedIVFPQ
     from zvdb_tpu_torch.parallel.sharded_pq import ShardedPQFlat
 
     assert ZT.ShardedFlat is ShardedFlat and ZT.ShardedHNSW is ShardedHNSW
     assert ZT.ShardedPQFlat is ShardedPQFlat and ZT.ShardedIVFPQ is ShardedIVFPQ
-    for name, item in (("ShardedIVF", "2d"), ("ShardedCagra", "2e")):
-        with pytest.raises(AttributeError, match=f"item {item}"):
-            getattr(ZT, name)
+    assert ZT.ShardedIVF is ShardedIVF and ZT.ShardedCagra is ShardedCagra
+    assert not hasattr(ZT, "_NOT_PORTED")
     with pytest.raises(AttributeError):
         ZT.NoSuchName

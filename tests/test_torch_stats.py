@@ -5,8 +5,9 @@ state in both packages gives equal `n`, `total_bytes`, `component_bytes`,
 as JAX's device scalars do, and a sharded state's bytes sum over the shards.
 On a built IVF-PQ index, sharded or not, both packages raise AttributeError:
 JAX's `index_stats` reads `state.blocks`, which IVFPQState does not have;
-on a ShardedHNSW both raise TypeError (JAX's int() of the stacked [S] `n`).
-Both are faults of the reference, kept."""
+on a ShardedHNSW or ShardedCagra both raise TypeError (JAX's int() of the
+stacked [S] `n`); on a ShardedIVF both give JAX's `clusters` entry over the
+stacked [S, C_loc] counts (`count` is S). All faults of the reference, kept."""
 import dataclasses
 
 import numpy as np
@@ -150,4 +151,35 @@ def test_sharded_hnsw_and_ivfpq_stats_raise_in_both_packages(rng, tmp_path):
     ti = ZT.ShardedIVFPQ.load(str(tmp_path / "i.npz"), mesh=_port_mesh4())
     for fn, idx in ((jax_stats, ji), (index_stats, ti)):
         with pytest.raises(AttributeError, match="blocks"):
+            fn(idx)
+
+
+def test_sharded_ivf_stats_equal_jax(tmp_path):
+    """JAX's dict, key for key, on a carried ShardedIVF (rerank: the shadow
+    stores count too). Its `clusters` entry reads the stacked [S, C_loc]
+    counts as if they were [C]: count == S, pad_waste over S x cap slots."""
+    from zvdb_tpu.parallel.sharded_ivf import ShardedIVF as JShardedIVF
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((800, 16)).astype(np.float32)
+    j = JShardedIVF(ZJ.IVFConfig(dim=16, n_clusters=16, rerank=2), mesh=_jax_mesh4())
+    j.build(x)
+    j.save(str(tmp_path / "v.npz"))
+    t = ZT.ShardedIVF.load(str(tmp_path / "v.npz"), mesh=_port_mesh4())
+    s, want = index_stats(t), jax_stats(j)
+    assert s == want and s["clusters"]["count"] == 4
+    assert set(want) == {"n", "total_bytes", "component_bytes", "overhead_vs_raw", "clusters"}
+
+
+def test_sharded_cagra_stats_raise_in_both_packages(tmp_path):
+    from zvdb_tpu.parallel.sharded_cagra import ShardedCagra as JShardedCagra
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((300, 8)).astype(np.float32)
+    t = ZT.ShardedCagra(ZT.CagraConfig(dim=8, degree=8), mesh=_port_mesh4())
+    t.build(x)
+    t.save(str(tmp_path / "c.npz"))
+    j = JShardedCagra.load(str(tmp_path / "c.npz"), mesh=_jax_mesh4())
+    for fn, idx in ((jax_stats, j), (index_stats, t)):
+        with pytest.raises(TypeError):
             fn(idx)

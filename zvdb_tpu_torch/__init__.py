@@ -1,14 +1,14 @@
 """zvdb-tpu on PyTorch and CUDA: the port of `zvdb_tpu` to an NVIDIA H100.
 
 The JAX package `zvdb_tpu` stays the reference; this package imports none of
-it and no JAX. Ported so far: the flat, PQ, IVF-PQ, CAGRA, HNSW and IVF-Flat engines
+it and no JAX. It holds the flat, PQ, IVF-PQ, CAGRA, HNSW and IVF-Flat engines
 (HNSW whole: insert and flush, the one-shot and batched builds with their
 checkpoints, search, persistence), the server in front of them, the engine
 router, the host tools (bench harness, datasets and native loader, stats,
 profiling), the sweep CLI (`python -m zvdb_tpu_torch.bench.sweep`) and the
-sharded flat, HNSW, PQ and IVF-PQ engines over a device mesh (`make_mesh`,
-`make_hybrid_mesh`, `ShardedFlat`, `ShardedHNSW`, `ShardedPQFlat`,
-`ShardedIVFPQ`, imported on first use).
+sharded engines over a device mesh (`make_mesh`, `make_hybrid_mesh`,
+`ShardedFlat`, `ShardedHNSW`, `ShardedPQFlat`, `ShardedIVFPQ`, `ShardedIVF`,
+`ShardedCagra`, imported on first use).
 
     from zvdb_tpu_torch import (HNSW, CagraConfig, CagraIndex, FlatConfig, FlatIndex,
                                 HNSWConfig, HNSWState, IVFConfig, IVFIndex, IVFPQConfig,
@@ -35,10 +35,6 @@ __all__ = ["HNSW", "CagraConfig", "CagraIndex", "FlatConfig", "FlatIndex", "HNSW
            "PQFlatIndex", "SearchConfig", "SearchServer", "exact_ground_truth",
            "make_hybrid_mesh", "relative_contrast", "suggest_engine"]
 
-# the sharded engines not ported yet, and the ROADMAP.md item that ports each
-_NOT_PORTED = {"ShardedIVF": "2d", "ShardedCagra": "2e"}
-
-
 def __getattr__(name):
     # the sharded engines and the meshes import on first use
     if name in ("make_mesh", "make_hybrid_mesh"):
@@ -61,7 +57,12 @@ def __getattr__(name):
         from .parallel.sharded_ivfpq import ShardedIVFPQ
 
         return ShardedIVFPQ
-    if name in _NOT_PORTED:
-        raise AttributeError(f"{name} is not ported to zvdb_tpu_torch yet (ROADMAP.md queue 1 "
-                             f"item {_NOT_PORTED[name]})")
+    if name == "ShardedIVF":
+        from .parallel.sharded_ivf import ShardedIVF
+
+        return ShardedIVF
+    if name == "ShardedCagra":
+        from .parallel.sharded_cagra import ShardedCagra
+
+        return ShardedCagra
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

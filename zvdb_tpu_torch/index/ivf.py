@@ -403,19 +403,26 @@ def group_q_cap(b: int, p: int, c: int, group_slack: float) -> int:
 def ivf_search_impl(state: IVFState, q: torch.Tensor, k: int, nprobe: int, metric: str,
                     precision: str = "float32", group_slack: float = 4.0,
                     residual: bool = False, rerank: int = 0,
-                    allowed: Optional[torch.Tensor] = None, filter_widen: int = 1):
+                    allowed: Optional[torch.Tensor] = None, filter_widen: int = 1,
+                    c_mask: Optional[torch.Tensor] = None,
+                    id_map: Optional[torch.Tensor] = None):
     """Batched IVF search. Returns (user scores [B, k], ext ids [B, k]).
 
     Probe scores -> each query's exact top-p clusters (ties to the lower
     cluster) -> the pair or grouped scan -> a [B, P * kk] pool -> the
     allowlist (on the whole pool) -> the exact rerank against the shadow
-    store, or the pool's top-k."""
+    store, or the pool's top-k. A sharded wrapper passes `c_mask` ([C]
+    bool: its padded cluster slots are never probed) and `id_map` ([rcap]
+    int32: b_ids, the shadow rows and `allowed` are then indexed by local
+    id, mapped to global ids after the rerank), as in the JAX package."""
     prec = _prec(precision)
     qp = D.preprocess_queries(q, metric)
     b = qp.shape[0]
     c, bcap, _ = state.blocks.shape
     p = nprobe
     cs = D.pairwise_scores(qp, state.centroids, state.c_norms, metric, precision=prec)
+    if c_mask is not None:
+        cs = torch.where(c_mask[None, :], cs, _INF)
     _, probes = T.smallest_k_dense(cs, p)                                   # [B, P]
     # filtered search widens each probe's pool so enough rows survive the allowlist
     kk = min((k * rerank if rerank else k) * max(filter_widen, 1), bcap)
@@ -440,6 +447,8 @@ def ivf_search_impl(state: IVFState, q: torch.Tensor, k: int, nprobe: int, metri
         best_s, best_i = T.smallest_k(merged_s, merged_i, k)
     user = D.finalize_scores(best_s, qp, metric)
     user = torch.where(best_i >= 0, user, _INF if metric == "l2" else -_INF)
+    if id_map is not None:
+        best_i = torch.where(best_i >= 0, id_map[best_i.clamp(min=0).long()], -1)
     return user, best_i
 
 

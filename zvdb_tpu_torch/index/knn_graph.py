@@ -351,6 +351,44 @@ def build_knn_graph(
         return e.value
 
 
+def build_knn_graph_multi(xs, degree: int, gens, devices=None, precision: str = "high",
+                          stats=None, **kw):
+    """Graph builds of several shards, interleaved phase by phase: one
+    _build_steps generator a shard (its own torch.Generator, its rows on
+    its device), every generator advanced to its next pull before any
+    request is pulled to the host, so each shard's device work is queued
+    before the host waits on the first pull.
+
+    xs: per-shard corpora (numpy, moved to the shard's device, or tensors,
+    moved only when a device is named); gens: one torch.Generator a shard;
+    devices: one device a shard (None: "cuda"); stats: optional list of
+    dicts, one a shard, as build_knn_graph's `stats`. The rest of the
+    keywords are build_knn_graph's. Returns a list of per-shard (nbrs,
+    dists, centroids, c_norms, c_rows), each equal to build_knn_graph's on
+    that shard's rows with an equally seeded generator."""
+    s = len(xs)
+    devices = devices if devices is not None else [None] * s
+    stats = stats if stats is not None else [None] * s
+    steps = []
+    for x, gen, dev, st in zip(xs, gens, devices, stats):
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(dev))
+        elif dev is not None:
+            x = x.to(dev)
+        steps.append(_build_steps(x, degree, gen, precision=precision, stats=st, **kw))
+    results: list = [None] * s
+    pending = [(i, None) for i in range(s)]
+    while pending:
+        reqs = []
+        for i, sent in pending:
+            try:
+                reqs.append((i, next(steps[i]) if sent is None else steps[i].send(sent)))
+            except StopIteration as e:
+                results[i] = e.value
+        pending = [(i, tuple(a.cpu().numpy() for a in req)) for i, req in reqs]
+    return results
+
+
 def _build_steps(
     x,
     degree: int,

@@ -102,6 +102,25 @@ def run_shards(mesh, local, shard_args, q: torch.Tensor, recorder=None,
     return tuple(torch.cat(parts, dim=0) for parts in zip(*rows))
 
 
+def place_clusters(counts: np.ndarray, n_shards: int):
+    """The cluster-sharded engines' placement (JAX's): clusters largest
+    first (a stable sort), each to the shard with the fewest rows so far.
+    Returns (members: per shard its global clusters in placement order,
+    cluster_of: [C, 2] int32 (shard, local cluster))."""
+    order = np.argsort(-counts, kind="stable")
+    load = np.zeros(n_shards, np.int64)
+    members = [[] for _ in range(n_shards)]
+    for ci in order:
+        tgt = int(np.argmin(load))
+        members[tgt].append(int(ci))
+        load[tgt] += counts[ci]
+    cluster_of = np.zeros((counts.shape[0], 2), np.int32)
+    for si, m in enumerate(members):
+        for li, ci in enumerate(m):
+            cluster_of[ci] = (si, li)
+    return members, cluster_of
+
+
 def make_anchor_reseed(mesh, a_count: int):
     """The per-shard anchor (re)sampler: reseed(states, seed) draws a_count
     rows with replacement in [0, max(n, 1)) of each shard (a generator

@@ -43,7 +43,7 @@ from ..ops import distance as D
 from ..ops import topk as T
 from .mesh import SHARD_AXIS, make_mesh
 from .scan_filter import make_sharded_masked_scan
-from .sharded import merge_span, run_shards
+from .sharded import merge_span, place_clusters, run_shards
 
 _INF = float("inf")
 
@@ -105,21 +105,9 @@ class ShardedIVFPQ:
         n = int(st.n)
         self._n = n
         self._dead = set()
-        counts = st.counts.cpu().numpy()
-        c = counts.shape[0]
-        order = np.argsort(-counts, kind="stable")
-        load = np.zeros(s, np.int64)
-        members = [[] for _ in range(s)]
-        for ci in order:
-            tgt = int(np.argmin(load))
-            members[tgt].append(int(ci))
-            load[tgt] += counts[ci]
+        members, self._cluster_of = place_clusters(st.counts.cpu().numpy(), s)
         c_loc = max(max(len(m) for m in members), 1)
         self._cent_host = st.centroids.cpu().numpy()
-        self._cluster_of = np.zeros((c, 2), np.int32)
-        for si, m in enumerate(members):
-            for li, ci in enumerate(m):
-                self._cluster_of[ci] = (si, li)
 
         b_ids = st.b_ids.cpu().numpy()            # global ids at this point
         n_loc = np.asarray([(b_ids[m] >= 0).sum() for m in members], np.int64)

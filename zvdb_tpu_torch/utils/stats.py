@@ -13,9 +13,13 @@ A sharded engine's state is a list with one entry per shard, where JAX
 stacks the shards on a leading axis. Its bytes are summed over the shards
 under the same keys, which is JAX's stacked count wherever the layouts
 agree. Where JAX's `index_stats` fails on a stacked state, the port raises
-the same exception type: a graph per shard (ShardedHNSW) raises TypeError,
-as JAX's `int(st.n)` does on an [S] array, and an IVF-PQ state per shard
-(ShardedIVFPQ) raises AttributeError, as JAX's `st.blocks` does.
+the same exception type: a graph per shard (ShardedHNSW, ShardedCagra)
+raises TypeError, as JAX's `int(st.n)` does on an [S] array, and an IVF-PQ
+state per shard (ShardedIVFPQ) raises AttributeError, as JAX's `st.blocks`
+does. On IVF-Flat states per shard (ShardedIVF) the `clusters` entry is
+JAX's reading of the stacked [S, C_loc] counts: `count` is S (the counts'
+first axis) and `pad_waste` is taken over S x cap slots, both faults of the
+reference, kept.
 """
 from __future__ import annotations
 
@@ -81,6 +85,9 @@ def index_stats(index: Any) -> Dict[str, Any]:
         if hasattr(first, "counts") and not hasattr(first, "blocks"):
             raise AttributeError(f"{type(first).__name__!r} object has no attribute 'blocks' "
                                  "(JAX's index_stats reads it on every IVF state)")
+        if hasattr(first, "counts"):
+            stats["clusters"] = _clusters(np.stack([sh.counts.cpu().numpy() for sh in st]),
+                                          first.blocks.shape[-2])
         return stats
 
     # graph structure (HNSW nbr0 and levels, CAGRA nbrs)
@@ -101,15 +108,19 @@ def index_stats(index: Any) -> Dict[str, Any]:
             stats["levels_hist"] = np.bincount(lv).tolist() if lv.size else []
             stats["max_level"] = int(st.max_level)
     if hasattr(st, "counts"):  # IVF
-        counts = st.counts.cpu().numpy()
         # as in JAX: IVF-PQ's state has no `blocks`, so this raises
         # AttributeError for it (a fault of the reference, kept)
-        cap = st.blocks.shape[-2]
-        stats["clusters"] = {
-            "count": int(counts.shape[0]),
-            "fill_mean": float(counts.mean()),
-            "fill_max": int(counts.max()) if counts.size else 0,
-            "capacity": int(cap),
-            "pad_waste": 1.0 - float(counts.sum()) / max(counts.shape[0] * cap, 1),
-        }
+        stats["clusters"] = _clusters(st.counts.cpu().numpy(), st.blocks.shape[-2])
     return stats
+
+
+def _clusters(counts: np.ndarray, cap: int) -> Dict[str, Any]:
+    """JAX's IVF entry: counts [C] (or a sharded [S, C_loc], read as JAX
+    reads its stacked array) and the block capacity."""
+    return {
+        "count": int(counts.shape[0]),
+        "fill_mean": float(counts.mean()),
+        "fill_max": int(counts.max()) if counts.size else 0,
+        "capacity": int(cap),
+        "pad_waste": 1.0 - float(counts.sum()) / max(counts.shape[0] * cap, 1),
+    }
