@@ -309,7 +309,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                   onto CPU devices too (ids equal to the card's up to
                   ties), ShardedIVF == the single-chip IVFIndex on an
                   exhaustive pool, and build_knn_graph_multi ==
-                  build_knn_graph shard by shard (nbrs equal), on the card.
+                  build_knn_graph shard by shard (nbrs equal), on the card;
+ 39. bench_cuda - bench_cuda.py's rows (bench.py's nine: flat, pq_1m,
+                  ivfpq_1m, cagra_1m, ivf, cagra, hnsw, flat_1m,
+                  flat_1m_pallas) at ZVDB_BENCH_SMOKE sizes (20k and 60k rows
+                  at 128d, 2,000 queries) through its `run`: exit code 0,
+                  every row with bench.py's keys in the last emitted line,
+                  recall@10 >= 0.99 on the flat rows, and kernels A and B
+                  (launches_mma) and C (launches) risen by their rows' search
+                  calls, D, E and F not at all.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -4177,6 +4185,40 @@ def phase_sharded_ivf_cagra_persist(ctx: Ctx, x1):
         raise AssertionError("build_knn_graph_multi differs from the per-shard builds")
 
 
+def phase_bench_cuda(ctx: Ctx):
+    import contextlib
+    import io
+
+    import bench_cuda as BC
+
+    n, nq, n1 = (2_048, 128, 4_096) if ctx.rehearse else (20_000, 2_000, 60_000)
+    reset_kernel_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = BC.run(ctx.device, n, nq, n1, K)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    print(f"  bench_cuda: {len(lines)} result lines, the last: {lines[-1] if lines else None}")
+    counts = kernel_counts()
+    ctx.report(f"bench_cuda rows at n={n}, n1={n1}, nq={nq}: exit code, seconds, "
+               "kernel launches", f"{rc}, {seconds:.1f}, {counts}")
+    if rc != 0:
+        raise AssertionError(f"bench_cuda.run exited {rc}")
+    engines = json.loads(lines[-1])["engines"]
+    for name, keys in BC.ROW_KEYS.items():
+        if name not in engines or tuple(engines[name]) != keys:
+            raise AssertionError(f"bench_cuda row {name}: {engines.get(name)} lacks {keys}")
+    for name in ("flat", "flat_1m", "flat_1m_pallas"):
+        if engines[name]["recall"] < 0.99:
+            raise AssertionError(f"bench_cuda {name} recall@10 {engines[name]['recall']} < 0.99")
+    calls = 0 if ctx.rehearse else BC.search_calls(nq, 2048, 6)
+    want = {name: 0 for name in counts}
+    want.update(A=calls, A_mma=calls, B=calls, B_mma=calls, C=calls)
+    if counts != want:
+        raise AssertionError(f"bench_cuda kernel launches {counts}, expected {want}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4255,6 +4297,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_sharded_cagra(ctx, x1, q1, gt, recall_at_k(cg_ids, gt, K))
     phase_sharded_ivf_cagra_persist(ctx, x1)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_bench_cuda(ctx)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{

@@ -1,6 +1,6 @@
-"""The port stands alone: importing zvdb_tpu_torch loads no JAX and nothing of
-zvdb_tpu. Checked in a fresh interpreter, since this test process has
-already imported jax (tests/conftest.py)."""
+"""The port stands alone: importing zvdb_tpu_torch or bench_cuda.py loads no
+JAX, nothing of zvdb_tpu and not bench.py. Checked in a fresh interpreter,
+since this test process has already imported jax (tests/conftest.py)."""
 import ast
 import os
 import subprocess
@@ -8,7 +8,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "zvdb_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "zvdb_tpu", "bench")
 
 _PROBE = """
 import sys
@@ -26,6 +26,7 @@ import zvdb_tpu_torch.parallel.mesh, zvdb_tpu_torch.parallel.sharded
 import zvdb_tpu_torch.parallel.sharded_flat, zvdb_tpu_torch.parallel.scan_filter
 import zvdb_tpu_torch.parallel.sharded_pq, zvdb_tpu_torch.parallel.sharded_ivfpq
 import zvdb_tpu_torch.parallel.sharded_ivf, zvdb_tpu_torch.parallel.sharded_cagra
+import bench_cuda
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(bad)
@@ -45,7 +46,8 @@ def test_import_loads_no_jax_and_no_reference_package():
 
 
 def test_sources_import_no_jax_and_no_reference_package():
-    files = sorted((REPO / "zvdb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "zvdb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                               REPO / "bench_cuda.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
