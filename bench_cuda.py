@@ -12,7 +12,8 @@ bench.py's order, with the cumulative result JSON line printed on stdout
 after every section (the last complete line is the result; the line's keys
 are bench.py's). Rows that run a hand-written kernel check its launch count
 on the card: flat_1m_pallas kernel A, pq_1m kernel B (both on the tensor
-cores), ivfpq_1m kernel C. Every other row launches none: the graph rows
+cores), ivfpq_1m the pair scan (kernel C's successor, ops/pq_scan.py:
+pq_grouped_scan_pairs). Every other row launches none: the graph rows
 keep bench.py's block_topk="approx", which the port selects exactly without
 kernel D.
 
@@ -75,6 +76,7 @@ ROW_KEYS = {
     "flat_1m_pallas": ("recall", "qps", "qps_runs"),
 }
 SCALE_KEYS = ("recall", "qps", "qps_runs", "build_pps")
+SCALE_CHUNK = 2_000_000   # rows the scale rows build or add at once (bench.py's chunk)
 
 
 def log(*a):
@@ -202,10 +204,12 @@ def timed_builds(factory, build, n, device):
 
 
 def kernel_counts():
-    """Launch counters of the kernels a bench row can reach (A, B, C, D)."""
+    """Launch counters of the kernels a bench row can reach (A, B, C and the
+    pair scan, D)."""
     return {"A": FS.flat_scan_bins.launches, "A_mma": FS.flat_scan_bins.launches_mma,
             "B": PS.pq_scan_bins.launches, "B_mma": PS.pq_scan_bins.launches_mma,
-            "C": PS.pq_grouped_scan_bins.launches, "D": BS.block_bins.launches}
+            "C": PS.pq_grouped_scan_bins.launches,
+            "C_pairs": PS.pq_grouped_scan_pairs.launches, "D": BS.block_bins.launches}
 
 
 def check_launches(row, device, before, expect):
@@ -377,7 +381,7 @@ def row_pq_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
 
 def row_ivfpq_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
     """IVF-PQ: pq_1m's codes and refine store, cluster-blocked; each query
-    scans its probed clusters through kernel C (nprobe 8, rerank 12)."""
+    scans its probed clusters through the pair scan (nprobe 8, rerank 12)."""
     n1, d = x1.shape
     nq = q1.shape[0]
     ipq_cfg = IVFPQConfig(dim=d, metric=metric)
@@ -394,7 +398,7 @@ def row_ivfpq_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
     fn = lambda qq: ipq.search(qq, k, nprobe=npb, rerank=rrb)
     ri_ = recall_at_k(search_ids(fn, q1, 2048), gt1, k)
     qpsi, qpsi_runs = timed_qps(fn, q1, 2048, device=device)
-    check_launches("ivfpq_1m", device, before, {"C": search_calls(nq, 2048, 6)})
+    check_launches("ivfpq_1m", device, before, {"C_pairs": search_calls(nq, 2048, 6)})
     log(f"ivfpq 1M: recall={ri_:.4f} qps={qpsi:,.0f} "
         f"build={n1/ipq_build_dev_s:,.0f} pts/s device-resident "
         f"({ipq_cfg.bytes_per_vector * n1 / 2**30:.2f} GB)")
@@ -492,7 +496,7 @@ def run_pq_scale(scale_n: int, k: int = 10, engine: str = "pq", device="cuda"):
     engine: "pq" (flat 4-bit scan, linear in N) or "ivfpq" (cluster-blocked
     probes). The build rate includes the exact-GT pass."""
     ds, nqs = 96, 2048
-    chunk_n = min(2_000_000, scale_n)
+    chunk_n = min(SCALE_CHUNK, scale_n)
     if engine == "ivfpq":
         # expected_rows pre-sizes blocks + refine so chunked adds never repack
         sidx = IVFPQIndex(IVFPQConfig(
@@ -577,7 +581,7 @@ def _prebuild_kernels():
     """Build the three kernel sources the rows launch, one nvcc each, together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(fn) for fn in (FS.build_mma, PS.build_mma, PS.build_grouped)]:
+        for fut in [pool.submit(fn) for fn in (FS.build_mma, PS.build_mma, PS.build_pairs)]:
             fut.result()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         "(flat_scan_mma.cu, pq_scan_mma.cu, pq_scan.cu)")

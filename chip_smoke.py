@@ -29,7 +29,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                   every precision x {l2, dot} x per_bin {1, 2}, cap no
                   multiple of L, tombstoned rows, empty slots and empty slot
                   tiles, qcap 32 and 64, B=1, a 64 KB table, duplicated
-                  codes, and the main path's geometry;
+                  codes, and the main path's geometry; pq_grouped_scan_pairs
+                  (the IVF-PQ search's scan into per-query pools) over every
+                  precision x {l2, dot} x per_bin {1, 2} on the engine's slot
+                  tables with a hot cluster past q_cap, slot windows, B=1,
+                  cap < L, an unstaged cluster and the ivfpq_1m geometry
+                  ("int8" pools equal with torch.equal; every precision read
+                  back into slots and held tie-aware to kernel C's plain
+                  bins; uncovered pools all +inf / -1);
   4. main       - the flat_1m_pallas configuration (1M x 128d synthetic SIFT
                   stand-in, rerank=4, scan="pallas", l_bins=1024) searched in
                   batches of 2048 through the kernel, recall@10 against the
@@ -64,16 +71,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                   batch (kernel time by name, the device's busy share);
  10. ivfpq main - the ivfpq_1m configuration (the same corpus and queries,
                   IVFPQConfig(dim=128) defaults: ~4096 clusters, 4-bit
-                  n_sub=16 codes, int8 grouped scan through kernel C, int16
-                  refine; search nprobe=8, rerank=12) built (points/s, peak
-                  device memory, a traced build's stages) and searched in
-                  batches of 2048, launch counts (C once per batch, A and B
-                  never) and recall@10 read; kernel C on the main path's own
-                  table and slots against its plain version;
+                  n_sub=16 codes, int8 pair scan, int16 refine; search
+                  nprobe=8, rerank=12) built (points/s, peak device memory,
+                  a traced build's stages) and searched in batches of 2048,
+                  launch counts (the pair scan once per batch, nothing else)
+                  and recall@10 read; the pair scan on the main path's own
+                  table and slots against its plain version in every
+                  precision, kernel C there in int8, and the pair scan with
+                  a cluster past q_cap (4 x q_cap queries probe it);
  11. ivfpq server - a SearchServer over the IVF-PQ index, as in phase 5;
- 12. ivfpq times - kernel C in every precision, its plain version, the
-                  torch.bmm yardstick, bound, search and server QPS, and a
-                  torch.profiler breakdown of a search batch;
+ 12. ivfpq times - the previous route (kernel C + the slot scatter) driven
+                  over every batch (kernel C's launches), the pair scan and
+                  kernel C in every precision on the first batch's inputs,
+                  the previous route, both plain versions, the torch.bmm
+                  yardstick, the bound recounted by what the batch needs
+                  (pools, stored rows, table, slots; live int8 operations)
+                  beside the TPU's count, peak device bytes of the pair
+                  scan, the previous route and a search batch, profiles of
+                  the pair scan's and the previous route's parts, search
+                  and server QPS, and a torch.profiler breakdown of a search
+                  batch;
  13. block compare - kernel D (block_bins, the graph build's block scorer:
                   "high" and "default" on the tensor cores, block_bins.cu;
                   "highest" on the CUDA cores, the second entry point of
@@ -261,11 +278,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                   shards (one single-chip build, then the clusters placed
                   largest first on the least-loaded shard), the build timed
                   whole and in its two parts; searched at nprobe=8,
-                  rerank=12: kernel C exactly 4 launches a batch and nothing
-                  else; recall@10 >= 0.95 and >= phase 10's minus 0.005;
-                  QPS, per-shard and merge ms, one traced batch; kernel C
-                  on shard 0's own slots, blocks and table against its plain
-                  version; a 1% allowlist in "scan" (the exact masked scan,
+                  rerank=12: the pair scan exactly 4 launches a batch and
+                  nothing else; recall@10 >= 0.95 and >= phase 10's minus
+                  0.005; QPS, per-shard and merge ms, one traced batch; the
+                  pair scan on shard 0's own slots, blocks and table against
+                  its plain version in every precision; a 1% allowlist in "scan" (the exact masked scan,
                   against the masked truth up to ties) and "probe" modes;
                   remove 1% and compact, timed; 10,000 and 1,000 rows added
                   to a build over 99% (rows/s, the path taken, self-hit@1 >=
@@ -316,8 +333,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                   at 128d, 2,000 queries) through its `run`: exit code 0,
                   every row with bench.py's keys in the last emitted line,
                   recall@10 >= 0.99 on the flat rows, and kernels A and B
-                  (launches_mma) and C (launches) risen by their rows' search
-                  calls, D, E and F not at all.
+                  (launches_mma) and the pair scan (launches) risen by their
+                  rows' search calls, C, D, E and F not at all.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -361,6 +378,7 @@ class Ctx:
         self.l_bins = 128 if rehearse else 1024
         self.batch = 256 if rehearse else BATCH
         self.card = "cpu rehearsal"
+        self.pairs_unstaged = None   # phase 12's A/B variant of the pair scan (phase_build)
 
     def sync(self):
         if self.device.type == "cuda":
@@ -415,18 +433,22 @@ def phase_build(ctx: Ctx):
         print("build: skipped (rehearsal)")
         return
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:   # one nvcc per source, started together
+    with ThreadPoolExecutor(9) as pool:   # one nvcc per source, started together
+        unstaged = pool.submit(build_pairs_unstaged)
         for fut in [pool.submit(fn) for fn in (FS.build_mma, FS.build, PS.build, PS.build_mma,
                                                ST.build_v1, ST.build_v1_mma, HS.build,
                                                BS.build_mma)]:
             fut.result()
+        ctx.pairs_unstaged = unstaged.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
+    PS.build_pairs()                      # the pair scan: its third entry point
     BS.build()                            # kernel D "highest": flat_scan.cu's second entry point
     ST.build_v2_mma()                     # kernel F: the second entry point of scan_topk_mma.cu
     ST.build_v2_passes()                  # the CUDA-core F, scan_topk.cu's, for comparison
     ctx.report("build seconds (flat_scan_mma.cu, flat_scan.cu, pq_scan.cu, pq_scan_mma.cu, "
-               "scan_topk.cu, scan_topk_mma.cu, hop_scores.cu and block_bins.cu in parallel; "
-               "seven kernels, twelve entry points)", round(time.perf_counter() - t0, 2))
+               "scan_topk.cu, scan_topk_mma.cu, hop_scores.cu and block_bins.cu in parallel, "
+               "with phase 12's unstaged pair scan; seven kernels, twelve entry points)",
+               round(time.perf_counter() - t0, 2))
     for info in (FS.build_info_mma, FS.build_info, PS.build_info, PS.build_info_mma,
                  ST.build_info, ST.build_info_mma, HS.build_info, BS.build_info):
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
@@ -1304,6 +1326,105 @@ def phase_compare_ivfpq(ctx: Ctx):
                  f"{precision} per_bin={per_bin}")
         compare_grouped_case(ctx, label, lut, qslot, codes, norms, l_bins, chunk, metric,
                              precision, per_bin)
+    phase_compare_pairs(ctx)
+
+
+def pair_inputs(rng, b, c, cap, n_sub, p, q_cap, metric, dev, invalid_every=0, hot=0):
+    """grouped_inputs' table, codes and norms, and the engine's slot tables
+    (index/ivf.py:_slot_pairs) for p distinct random probes a query; hot > 0
+    sends that many queries' rank-0 probe to cluster 0, past q_cap."""
+    from zvdb_tpu_torch.index.ivf import _slot_pairs
+
+    lut, _, codes, norms = grouped_inputs(rng, b, c, cap, n_sub, 8, metric, dev,
+                                          invalid_every=invalid_every)
+    probes = np.argsort(rng.random((b, c)), axis=1)[:, :p]
+    for r in range(min(hot, b)):   # cluster 0 first, then p - 1 others
+        probes[r] = np.concatenate([[0], 1 + np.argsort(rng.random(c - 1))[:p - 1]])
+    qslot, pslot = _slot_pairs(torch.from_numpy(probes.astype(np.int64)).to(dev), b, p, c, q_cap)
+    return lut, qslot, pslot, codes, norms
+
+
+def pairs_to_slots(pool_s, pool_i, qslot, pslot, n_probe, lw, capp):
+    """The pair scan's pools read back into the grouped scan's slot layout
+    ([C, qcap, lw]: scores, positions within the cluster; empty slots +inf /
+    -1) and the [B, n_probe] mask of the pools some slot names."""
+    b = pool_s.shape[0]
+    c = qslot.shape[0]
+    live = (qslot >= 0)[..., None]
+    q, p = qslot.clamp(min=0).long(), pslot.clamp(min=0).long()
+    ss = pool_s.reshape(b, n_probe, lw)[q, p]
+    ii = pool_i.reshape(b, n_probe, lw)[q, p]
+    cidx = torch.arange(c, device=ii.device)[:, None, None] * capp
+    ss = torch.where(live, ss, float("inf"))
+    ii = torch.where(live & (ii >= 0), ii - cidx, -1).to(torch.int32)
+    covered = torch.zeros((b, n_probe), dtype=torch.bool, device=ii.device)
+    covered[q[qslot >= 0], p[qslot >= 0]] = True
+    return ss, ii, covered
+
+
+def compare_pairs_case(ctx, label, lut, qslot, pslot, codes, norms, n_probe, l_bins, chunk,
+                       metric, precision, per_bin):
+    """The pair scan against its plain version: "int8" pools equal with
+    torch.equal; every precision read back into the slot layout and held to
+    the grouped scan's plain bins by check_grouped_bins (tie-aware for
+    "default"/"high"), and every pool no slot names all +inf / -1."""
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    before = PS.pq_grouped_scan_pairs.launches
+    ks, ki = PS.pq_grouped_scan_pairs(lut, qslot, pslot, codes, norms, n_probe, l_bins=l_bins,
+                                      chunk=chunk, metric=metric, precision=precision,
+                                      per_bin=per_bin)
+    PS.pq_grouped_scan_pairs.launches = before   # comparison launches count for nothing
+    ps, pi = PS._pq_grouped_scan_pairs_plain(lut, qslot, pslot, codes, norms, n_probe, l_bins,
+                                             chunk, metric, precision, per_bin)
+    ctx.sync()
+    if precision == "int8" and not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+        raise AssertionError(f"{label}: {int((ki != pi).sum())} positions and "
+                             f"{int((ks != ps).sum())} scores differ from plain")
+    lw = per_bin * l_bins
+    _, capp = PS.grouped_geometry(codes.shape[2], l_bins, chunk)
+    ss, si, covered = pairs_to_slots(ks, ki, qslot, pslot, n_probe, lw, capp)
+    bs, bi = PS._pq_grouped_scan_bins_plain(lut, qslot, codes, norms, l_bins, chunk, metric,
+                                            precision, per_bin)
+    err = check_grouped_bins(lut, qslot, codes, norms, l_bins, metric, precision, ss, si, bs, bi,
+                             label)
+    gone = ~covered.reshape(-1)
+    b = ks.shape[0]
+    if not (bool((ki.reshape(b * n_probe, lw)[gone] == -1).all())
+            and bool(torch.isinf(ks.reshape(b * n_probe, lw)[gone]).all())):
+        raise AssertionError(f"{label}: a pool no slot names is not all +inf / -1")
+    print(f"  compare {label}: ok ({int(gone.sum())} uncovered pools), max |kernel - plain| = "
+          f"{err:.3g}", flush=True)
+    return err
+
+
+def phase_compare_pairs(ctx: Ctx):
+    """The pair scan (pq_grouped_scan_pairs) against its plain version:
+    every precision x {l2, dot} x per_bin {1, 2} on the engine's slot tables
+    with a hot cluster past q_cap, cap no multiple of L, tombstones, qcap
+    past one window, B=1, a cap below L, and a cap too large to stage."""
+    rng = np.random.default_rng(4320)
+    dev = ctx.device
+    # (B, C, cap, S, P, q_cap, L, chunk, metric, precision, per_bin, invalid_every, hot)
+    cases = [(37, 50, 700, 16, 5, 32, 256, 512, metric, precision, per_bin, 7, 33)
+             for precision in ("int8", "default", "high") for metric in ("l2", "dot")
+             for per_bin in (1, 2)]
+    cases += [
+        (300, 40, 300, 16, 4, 96, 128, 256, "l2", "int8", 2, 5, 120),      # int8 window < qcap
+        (200, 30, 500, 32, 3, 64, 128, 512, "l2", "high", 2, 9, 90),       # "high": 4 windows
+        (1, 20, 300, 16, 8, 32, 256, 512, "l2", "int8", 2, 5, 0),          # B=1
+        (9, 12, 40, 16, 4, 32, 128, 128, "dot", "default", 1, 0, 0),       # cap < L
+        (20, 6, 4200, 16, 2, 32, 256, 512, "l2", "int8", 2, 3, 0),         # not staged: 50 KB
+    ]
+    if not ctx.rehearse:   # the ivfpq_1m geometry on random codes
+        cases.append((BATCH, 5467, 624, 16, 8, 32, 256, 512, "l2", "int8", 2, 11, 0))
+    for b, c, cap, n_sub, p, q_cap, l_bins, chunk, metric, precision, per_bin, inv, hot in cases:
+        lut, qslot, pslot, codes, norms = pair_inputs(rng, b, c, cap, n_sub, p, q_cap, metric,
+                                                      dev, invalid_every=inv, hot=hot)
+        label = (f"IVF-PQ pairs B={b} C={c} cap={cap} S={n_sub} P={p} qcap={q_cap} L={l_bins} "
+                 f"{metric} {precision} per_bin={per_bin}")
+        compare_pairs_case(ctx, label, lut, qslot, pslot, codes, norms, p, l_bins, chunk, metric,
+                           precision, per_bin)
 
 
 def phase_ivfpq_main(ctx: Ctx, x1, q1, gt):
@@ -1327,9 +1448,7 @@ def phase_ivfpq_main(ctx: Ctx, x1, q1, gt):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
-    FS.flat_scan_bins.launches = 0
-    PS.pq_scan_bins.launches = 0
-    PS.pq_grouped_scan_bins.launches = 0
+    reset_kernel_counts()
     build_pps = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1337,22 +1456,21 @@ def phase_ivfpq_main(ctx: Ctx, x1, q1, gt):
         idx.build(xd)
         ctx.sync()
         build_pps.append(ctx.n / (time.perf_counter() - t0))
+    reset_kernel_counts()
     ids = batched_ids(ctx, idx, q1, **IVFPQ_SEARCH)
     ctx.sync()
-    launches = PS.pq_grouped_scan_bins.launches
-    other = (FS.flat_scan_bins.launches, PS.pq_scan_bins.launches)
+    counts = kernel_counts()
+    launches = counts["C_pairs"]
     rec = recall_at_k(ids, gt, K)
     ctx.report("ivfpq_1m build points/s (2 runs, rows already on the device)", build_pps)
     ctx.report("ivfpq_1m recall@10", rec)
-    ctx.report("ivfpq_1m kernel launches", f"pq_grouped_scan_bins {launches}, flat_scan_bins "
-                                           f"{other[0]}, pq_scan_bins {other[1]} for "
-                                           f"{n_batches} batches")
+    ctx.report("ivfpq_1m kernel launches", f"{counts} for {n_batches} batches")
     if dev.type == "cuda":
         ctx.report("ivfpq_1m peak device memory GB (build + search, max_memory_allocated)",
                    torch.cuda.max_memory_allocated() / 1e9)
-    if not ctx.rehearse and (launches != n_batches or any(other)):
-        raise AssertionError(f"ivfpq kernels launched C {launches}, A {other[0]}, B {other[1]} "
-                             f"times for {n_batches} batches")
+    if not ctx.rehearse and (launches != n_batches or sum(counts.values()) != n_batches):
+        raise AssertionError(f"ivfpq_1m kernel launches {counts}: the pair scan once a batch "
+                             f"({n_batches}) and nothing else")
     if rec < 0.95:
         raise AssertionError(f"ivfpq_1m recall@10 {rec} < 0.95")
     os.environ["ZVDB_BUILD_TRACE"] = "1"   # one more build, its stages timed (syncs between)
@@ -1362,14 +1480,14 @@ def phase_ivfpq_main(ctx: Ctx, x1, q1, gt):
         del os.environ["ZVDB_BUILD_TRACE"]
     del xd
 
-    # kernel C on the main path's own inputs (the first batch's table and
-    # slots), held against its plain version
+    # the pair scan on the main path's own inputs (the first batch's table
+    # and slots) against its plain version, and kernel C beside it
     st = idx.state
     c, _, cap = st.codes_blocks.shape
     _, capp = PS.grouped_geometry(cap, cfg.l_bins, cfg.chunk)
     qp = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(dev), cfg.metric)
-    p, qslot, _ = IV._probe_slots(st, qp, IVFPQ_SEARCH["nprobe"], cfg.group_slack,
-                                  cfg.scan_precision, cfg.metric)
+    p, qslot, pslot = IV._probe_slots(st, qp, IVFPQ_SEARCH["nprobe"], cfg.group_slack,
+                                      cfg.scan_precision, cfg.metric)
     lut = PQ.adc_lut(PQ.apply_rotation(qp, st.rot), st.codebooks)
     live = int((qslot >= 0).sum())
     ctx.report("ivfpq_1m geometry (first batch)",
@@ -1377,31 +1495,182 @@ def phase_ivfpq_main(ctx: Ctx, x1, q1, gt):
                f"{qslot.numel()}, {qp.shape[0] * p - live} probe pairs dropped")
     errs = {}
     for precision in ("int8", "default", "high"):
-        errs[precision] = compare_grouped_case(
-            ctx, f"IVF-PQ main-path inputs B={lut.shape[0]} C={c} cap={cap} {precision}",
-            lut, qslot, st.codes_blocks, st.norms_blocks, cfg.l_bins, cfg.chunk, cfg.metric,
-            precision, cfg.per_bin)
-    return idx, ids, launches, lut, qslot, errs
+        errs[precision] = compare_pairs_case(
+            ctx, f"IVF-PQ pairs main-path inputs B={lut.shape[0]} C={c} cap={cap} {precision}",
+            lut, qslot, pslot, st.codes_blocks, st.norms_blocks, p, cfg.l_bins, cfg.chunk,
+            cfg.metric, precision, cfg.per_bin)
+    compare_grouped_case(ctx, f"IVF-PQ kernel C main-path inputs B={lut.shape[0]} int8", lut,
+                         qslot, st.codes_blocks, st.norms_blocks, cfg.l_bins, cfg.chunk,
+                         cfg.metric, "int8", cfg.per_bin)
+    # a hot cluster past q_cap: the first 4 * q_cap queries all probe the
+    # first query's nearest cluster (in place of their last probe)
+    cs = D.pairwise_scores(qp, st.centroids, st.c_norms, cfg.metric)
+    probes = torch.topk(cs, p, dim=1, largest=False).indices
+    hot = probes[0, 0]
+    n_hot = min(4 * qslot.shape[1], qp.shape[0])
+    has = (probes[:n_hot] == hot).any(1)
+    probes[:n_hot, -1] = torch.where(has, probes[:n_hot, -1], hot)
+    hslot, hpslot = IV._slot_pairs(probes, qp.shape[0], p, c, qslot.shape[1])
+    for precision in ("int8", "default", "high"):
+        compare_pairs_case(
+            ctx, f"IVF-PQ pairs main-path inputs, cluster {int(hot)} probed by {n_hot} queries "
+            f"(q_cap {qslot.shape[1]}) {precision}", lut, hslot, hpslot, st.codes_blocks,
+            st.norms_blocks, p, cfg.l_bins, cfg.chunk, cfg.metric, precision, cfg.per_bin)
+    return idx, ids, launches, lut, (p, qslot, pslot, hslot, hpslot), errs
 
 
-def phase_ivfpq_times(ctx: Ctx, idx, q1, lut, qslot):
+PAIR_STAGE = "constexpr int PAIR_STAGE_BYTES = 49152;"
+
+
+def build_pairs_unstaged():
+    """The pair scan's entry point built from csrc/pq_scan.cu with its
+    staging threshold at 0, so that no cluster's codes and norms are staged
+    in shared memory and every walk reads them through the read-only cache:
+    phase 12's A/B against the shipped kernel. The engines never run it."""
+    import ctypes
+
+    from zvdb_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "pq_scan.cu").read_text()
+    if src.count(PAIR_STAGE) != 1:
+        raise RuntimeError("pq_scan.cu's PAIR_STAGE_BYTES moved: update PAIR_STAGE")
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = cuda_build.BUILD_DIR / "pq_scan_unstaged.cu"
+    path.write_text(src.replace(PAIR_STAGE, "constexpr int PAIR_STAGE_BYTES = 0;"))
+    lib = path.with_suffix(".so")
+    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(path)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {path}:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).zvdb_pq_grouped_scan_pairs
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pairs_entry(kernel, lut, qslot, pslot, st, cfg, p, precision):
+    """A call of one pair-scan entry point on inputs prepared once (the
+    table quantized, the outputs allocated), returning its pools; counts
+    nothing. Times the kernels alone, without the wrapper's table ops."""
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    b, n_sub, _ = lut.shape
+    c, _, cap = st.codes_blocks.shape
+    _, capp = PS.grouped_geometry(cap, cfg.l_bins, cfg.chunk)
+    lut_k, scales = PS._prep_lut(lut, precision)
+    lut_k = lut_k.contiguous()
+    width = p * cfg.per_bin * cfg.l_bins
+    pool_s = torch.empty((b, width), dtype=torch.float32, device=lut.device)
+    pool_i = torch.empty((b, width), dtype=torch.int32, device=lut.device)
+    covered = torch.empty(b * p, dtype=torch.uint8, device=lut.device)
+    args = (lut_k.data_ptr(), scales.data_ptr(), qslot.data_ptr(), pslot.data_ptr(),
+            st.codes_blocks.data_ptr(), st.norms_blocks.data_ptr(), pool_s.data_ptr(),
+            pool_i.data_ptr(), covered.data_ptr(), b, p, c, qslot.shape[1], cap, capp, n_sub,
+            cfg.l_bins, 2.0 if cfg.metric == "l2" else 1.0, PS._PRECISION_CODE[precision],
+            cfg.per_bin)
+
+    def call():
+        rc = kernel(*args, torch.cuda.current_stream(lut.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"pair scan entry point failed with CUDA error {rc}")
+        return pool_s, pool_i
+    return call
+
+
+def phase_pairs_stage_ab(ctx: Ctx, idx, lut, slots):
+    """The pair scan's two code paths on the main path's first batch and on
+    its hot-cluster slots: the shipped kernel, which stages each cluster's
+    codes and norms in shared memory when they fit 48 KB (every cluster of
+    ivfpq_1m), against the same source built never to stage. Pools equal
+    bit for bit; each entry point timed twice, in the order shipped,
+    unstaged, unstaged, shipped, 100 calls each."""
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    if ctx.device.type != "cuda":
+        return
+    cfg, st = idx.cfg, idx.state
+    p, qslot, pslot, hslot, hpslot = slots
+    cases = [("first batch", qslot, pslot, pr) for pr in ("int8", "default", "high")]
+    cases += [("hot cluster", hslot, hpslot, "int8")]
+    for label, qs, ps, pr in cases:
+        shipped = pairs_entry(PS.build_pairs(), lut, qs, ps, st, cfg, p, pr)
+        unstaged = pairs_entry(ctx.pairs_unstaged, lut, qs, ps, st, cfg, p, pr)
+        a = [t.clone() for t in shipped()]
+        u = unstaged()
+        if not (torch.equal(a[0], u[0]) and torch.equal(a[1], u[1])):
+            raise AssertionError(f"pair scan {label} {pr}: staged and unstaged pools differ")
+        ms = [ctx.time_ms(fn, reps=100) for fn in (shipped, unstaged, unstaged, shipped)]
+        ctx.report(f"ivfpq pair scan entry ms ({label}, {pr}): staged (shipped) "
+                   f"[{ms[0]}, {ms[3]}], unstaged [{ms[1]}, {ms[2]}]; pools equal", "")
+
+
+def old_route(lut, qslot, pslot, st, cfg, p, precision):
+    """The IVF-PQ search's scan before the pair scan: kernel C's [C, qcap,
+    lw] slot output, then the scatter to per-query pools (what the JAX
+    package's search does). Returns the pools."""
+    from zvdb_tpu_torch.ops import pq_scan as PS
+
+    bin_s, bin_pos = PS.pq_grouped_scan_bins(
+        lut, qslot, st.codes_blocks, st.norms_blocks, l_bins=cfg.l_bins, chunk=cfg.chunk,
+        metric=cfg.metric, precision=precision, per_bin=cfg.per_bin)
+    _, capp = PS.grouped_geometry(st.codes_blocks.shape[2], cfg.l_bins, cfg.chunk)
+    return PS.slots_to_pools(bin_s, bin_pos, qslot, pslot, p, capp, lut.shape[0])
+
+
+def peak_bytes(ctx: Ctx, fn) -> float:
+    """Device bytes allocated at the peak of fn() above what was live before."""
+    if ctx.device.type != "cuda":
+        fn()
+        return float("nan")
+    ctx.sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    ctx.sync()
+    return float(torch.cuda.max_memory_allocated() - base)
+
+
+def phase_ivfpq_times(ctx: Ctx, idx, q1, lut, slots):
     from zvdb_tpu_torch.ops import pq_scan as PS
     from zvdb_tpu_torch.ops.pq import unpack_nibbles
 
     cfg, st = idx.cfg, idx.state
     dev = ctx.device
+    p, qslot, pslot = slots[:3]
     b, n_sub, _ = lut.shape
     c, nb, cap = st.codes_blocks.shape
     qcap = qslot.shape[1]
     _, capp = PS.grouped_geometry(cap, cfg.l_bins, cfg.chunk)
     lw = cfg.per_bin * cfg.l_bins
     kw = dict(l_bins=cfg.l_bins, chunk=cfg.chunk, metric=cfg.metric, per_bin=cfg.per_bin)
-    ms = {p: ctx.time_ms(lambda p=p: PS.pq_grouped_scan_bins(
-        lut, qslot, st.codes_blocks, st.norms_blocks, precision=p, **kw), reps=20)
-        for p in ("int8", "default", "high")}
-    plain_ms = ctx.time_ms(lambda: PS._pq_grouped_scan_bins_plain(
+
+    saved = (PS.pq_grouped_scan_pairs.launches, PS.pq_grouped_scan_bins.launches)
+    ms = {pr: ctx.time_ms(lambda pr=pr: PS.pq_grouped_scan_pairs(
+        lut, qslot, pslot, st.codes_blocks, st.norms_blocks, p, precision=pr, **kw), reps=50)
+        for pr in ("int8", "default", "high")}
+    ms_c = {pr: ctx.time_ms(lambda pr=pr: PS.pq_grouped_scan_bins(
+        lut, qslot, st.codes_blocks, st.norms_blocks, precision=pr, **kw), reps=20)
+        for pr in ("int8", "default", "high")}
+    ms_route = ctx.time_ms(lambda: old_route(lut, qslot, pslot, st, cfg, p, "int8"), reps=10)
+    plain_ms = ctx.time_ms(lambda: PS._pq_grouped_scan_pairs_plain(
+        lut, qslot, pslot, st.codes_blocks, st.norms_blocks, p, cfg.l_bins, cfg.chunk,
+        cfg.metric, "int8", cfg.per_bin), reps=2)
+    plain_c_ms = ctx.time_ms(lambda: PS._pq_grouped_scan_bins_plain(
         lut, qslot, st.codes_blocks, st.norms_blocks, cfg.l_bins, cfg.chunk, cfg.metric, "int8",
         cfg.per_bin), reps=2)
+    mem_pairs = peak_bytes(ctx, lambda: PS.pq_grouped_scan_pairs(
+        lut, qslot, pslot, st.codes_blocks, st.norms_blocks, p, precision="int8", **kw))
+    mem_route = peak_bytes(ctx, lambda: old_route(lut, qslot, pslot, st, cfg, p, "int8"))
+    qb = q1[:ctx.batch]
+    mem_search = peak_bytes(ctx, lambda: idx.search(qb, K, **IVFPQ_SEARCH))
+    if dev.type == "cuda":   # the wrapper's parts: the int8 table, the memset, the two kernels
+        profile_calls(ctx, "ivfpq pair scan profile (int8, 10 calls)", [lambda: (
+            PS.pq_grouped_scan_pairs(lut, qslot, pslot, st.codes_blocks, st.norms_blocks, p,
+                                     precision="int8", **kw))] * 10, "call")
+        profile_calls(ctx, "ivfpq previous route profile (int8, 3 calls)",
+                      [lambda: old_route(lut, qslot, pslot, st, cfg, p, "int8")] * 3, "call")
+    PS.pq_grouped_scan_pairs.launches, PS.pq_grouped_scan_bins.launches = saved
     # yardstick: the product part alone, torch.bmm of the slots' gathered
     # bf16 tables [C, qcap, S*16] by a prebuilt one-hot of each padded block
     # [C, S*16, capp]
@@ -1416,34 +1685,53 @@ def phase_ivfpq_times(ctx: Ctx, idx, q1, lut, qslot):
     lutg = lut.reshape(b, -1)[qslot.clamp(min=0).long()].to(torch.bfloat16)
     library_ms = ctx.time_ms(lambda: torch.bmm(lutg, oh), reps=10)
     del oh, codes, lutg
-    # bound: each input read once, each output written once, against the
-    # int8 operations this batch's data needs (each live slot against its
-    # cluster's stored rows); the TPU kernel's own count is every slot
-    # against every padded position
-    live_rows = float(((qslot >= 0).sum(1).double() * st.counts.double()).sum())
+    # the bound, counted by what this batch needs: each pool written once
+    # (B * P * lw scores and positions), the stored rows of the probed
+    # clusters read once (codes and norms), the int8 table and scales, the
+    # slot tables; against the int8 operations of each live slot over its
+    # cluster's stored rows. The TPU's count is every slot of [C, qcap, lw]
+    # written and every slot against every padded position.
+    n_slots = (qslot >= 0).sum(1).double()
+    probed_rows = float(st.counts.double()[n_slots > 0].sum())
+    live_rows = float((n_slots * st.counts.double()).sum())
     ops = 2.0 * live_rows * n_sub * 16
     ops_tpu = 2.0 * c * qcap * capp * n_sub * 16
-    nbytes = (b * n_sub * 16 + 4 * b + 4 * c * qcap + c * nb * cap + 4 * c * cap
-              + 8 * c * qcap * lw)
-    bound_ops, bound_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    in_bytes = b * n_sub * 16 + 4 * b + 8 * c * qcap + probed_rows * (nb + 4)
+    pool_bytes = 8.0 * b * p * lw
+    slot_bytes = 8.0 * c * qcap * lw
+    bound_ops = ops / PEAK_INT8 * 1e3
+    bound_bytes = (in_bytes + pool_bytes) / HBM_BYTES_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
-    shape = f"B={b} C={c} cap={cap} capp={capp} qcap={qcap} S={n_sub} L={cfg.l_bins} per_bin={cfg.per_bin}"
-    for p, t in ms.items():
-        ctx.report(f"ivfpq kernel ms ({p}, {shape})", t)
-    ctx.report("ivfpq plain version ms (int8)", plain_ms)
+    tpu_bytes_ms = (b * n_sub * 16 + 4 * b + 4 * c * qcap + c * nb * cap + 4 * c * cap
+                    + slot_bytes) / HBM_BYTES_S * 1e3
+    shape = (f"B={b} P={p} C={c} cap={cap} capp={capp} qcap={qcap} S={n_sub} L={cfg.l_bins} "
+             f"per_bin={cfg.per_bin}")
+    for pr in ms:
+        ctx.report(f"ivfpq pair scan ms ({pr}, {shape})", ms[pr])
+        ctx.report(f"ivfpq kernel C ms ({pr}, the same inputs)", ms_c[pr])
+    ctx.report("ivfpq previous route ms (kernel C int8 + flat positions + the slot scatter)",
+               ms_route)
+    ctx.report("ivfpq plain versions ms (int8): pair scan, kernel C", f"{plain_ms}, {plain_c_ms}")
     ctx.report("ivfpq torch.bmm yardstick ms (bf16 [C,qcap,S*16] x one-hot [C,S*16,capp])",
                library_ms)
-    ctx.report("ivfpq bound ms (bytes / 3.35 TB/s vs live int8 ops / 1979 TOP/s)",
-               f"{bound_ms} (bytes {bound_bytes}: {nbytes} B, of which output "
-               f"{8 * c * qcap * lw}; ops {bound_ops}: {ops:.4g}; the TPU's count "
-               f"{ops_tpu:.4g} ops would take {ops_tpu / PEAK_INT8 * 1e3} ms)")
+    ctx.report("ivfpq bound ms, recounted (what the batch needs: bytes / 3.35 TB/s vs live "
+               "int8 ops / 1979 TOP/s)",
+               f"{bound_ms} (bytes {bound_bytes}: pools {pool_bytes:.4g} B + inputs "
+               f"{in_bytes:.4g} B ({probed_rows:.0f} stored rows of probed clusters); ops "
+               f"{bound_ops}: {ops:.4g}); the TPU's count: bytes {tpu_bytes_ms} ms with the "
+               f"[C, qcap, lw] slot output {slot_bytes:.4g} B, ops {ops_tpu / PEAK_INT8 * 1e3} "
+               f"ms ({ops_tpu:.4g})")
+    ctx.report("ivfpq peak device bytes above the batch's inputs (int8): pair scan, previous "
+               "route, one search batch", f"{mem_pairs:.4g}, {mem_route:.4g}, {mem_search:.4g}")
     ctx.report("ivfpq_1m search QPS (batches of 2048, 3 runs)",
                search_qps(ctx, idx, q1, search_kwargs=IVFPQ_SEARCH))
     ctx.report("ivfpq_1m server QPS (8 threads, requests of 16 queries)",
                server_qps(ctx, idx, q1, search_kwargs=IVFPQ_SEARCH))
     profile_search(ctx, idx, q1, label="ivfpq_1m", search_kwargs=IVFPQ_SEARCH)
+    phase_pairs_stage_ab(ctx, idx, lut, slots)
+    bound_by = "operations" if bound_ops >= bound_bytes else "bytes"
     return dict(ms=ms["int8"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="operations" if bound_ops >= bound_bytes else "bytes")
+                bound_by=bound_by)
 
 # ---------------------------------------------------------------------------
 # CAGRA: kernel D (block_bins) and the cagra_1m main path
@@ -1534,7 +1822,8 @@ def kernel_counts():
     return dict(A=FS.flat_scan_bins.launches, A_mma=FS.flat_scan_bins.launches_mma,
                 B=PS.pq_scan_bins.launches,
                 B_mma=PS.pq_scan_bins.launches_mma, C=PS.pq_grouped_scan_bins.launches,
-                D=BS.block_bins.launches, D_mma=BS.block_bins.launches_mma,
+                C_pairs=PS.pq_grouped_scan_pairs.launches, D=BS.block_bins.launches,
+                D_mma=BS.block_bins.launches_mma,
                 E=ST.flat_topk_pallas.launches, E_mma=ST.flat_topk_pallas.launches_mma,
                 F=ST.flat_topk_pallas2.launches, F_mma=ST.flat_topk_pallas2.launches_mma)
 
@@ -1547,8 +1836,8 @@ def reset_kernel_counts():
 
     FS.flat_scan_bins.launches = FS.flat_scan_bins.launches_mma = 0
     PS.pq_scan_bins.launches = PS.pq_scan_bins.launches_mma = 0
-    PS.pq_grouped_scan_bins.launches = BS.block_bins.launches = 0
-    BS.block_bins.launches_mma = 0
+    PS.pq_grouped_scan_bins.launches = PS.pq_grouped_scan_pairs.launches = 0
+    BS.block_bins.launches = BS.block_bins.launches_mma = 0
     ST.flat_topk_pallas.launches = ST.flat_topk_pallas.launches_mma = 0
     ST.flat_topk_pallas2.launches = ST.flat_topk_pallas2.launches_mma = 0
 
@@ -3562,9 +3851,9 @@ def phase_sharded_ivfpq(ctx: Ctx, x1, q1, gt, ivf_recall: float):
     ctx.report("sharded_ivfpq_1m recall@10 (all queries)",
                f"{rec} (single-chip ivfpq_1m {ivf_recall})")
     want = N_SHARDS * n_batches
-    if not ctx.rehearse and (counts["C"] != want or sum(counts.values()) != want):
-        raise AssertionError(f"sharded_ivfpq_1m: kernel C launched {counts['C']} times, not "
-                             f"{want}: {counts}")
+    if not ctx.rehearse and (counts["C_pairs"] != want or sum(counts.values()) != want):
+        raise AssertionError(f"sharded_ivfpq_1m: the pair scan launched {counts['C_pairs']} "
+                             f"times, not {want}: {counts}")
     if rec < 0.95 or rec < ivf_recall - 0.005:
         raise AssertionError(f"sharded_ivfpq_1m recall@10 {rec} < max(0.95, {ivf_recall} "
                              "- 0.005)")
@@ -3574,18 +3863,18 @@ def phase_sharded_ivfpq(ctx: Ctx, x1, q1, gt, ivf_recall: float):
     trace_split(ctx, f"sharded_ivfpq_1m one traced batch of {ctx.batch}",
                 lambda: idx.search(q1[:ctx.batch], K, **IVFPQ_SEARCH))
 
-    # kernel C on shard 0's own inputs: its slots for the first batch, its
-    # blocks, the table
+    # the pair scan on shard 0's own inputs: its slots for the first batch,
+    # its blocks, the table
     qp = D.preprocess_queries(torch.from_numpy(q1[:ctx.batch]).to(dev), cfg.metric)
     p_loc = min(-(-IVFPQ_SEARCH["nprobe"] // N_SHARDS) + 1, st0.c_norms.shape[0])
-    _, qslot, _ = IV._probe_slots(st0, qp, p_loc, cfg.group_slack, cfg.scan_precision,
-                                  cfg.metric, c_mask=idx.c_mask[0])
+    p_loc, qslot, pslot = IV._probe_slots(st0, qp, p_loc, cfg.group_slack, cfg.scan_precision,
+                                          cfg.metric, c_mask=idx.c_mask[0])
     lut = PQ.adc_lut(PQ.apply_rotation(qp, st0.rot), st0.codebooks)
     for precision in ("int8", "default", "high"):
-        compare_grouped_case(
-            ctx, f"IVF-PQ shard 0 inputs B={lut.shape[0]} C_loc={st0.codes_blocks.shape[0]} "
-            f"q_cap={qslot.shape[1]} {precision}", lut, qslot, st0.codes_blocks,
-            st0.norms_blocks, cfg.l_bins, cfg.chunk, cfg.metric, precision, cfg.per_bin)
+        compare_pairs_case(
+            ctx, f"IVF-PQ pairs shard 0 inputs B={lut.shape[0]} C_loc={st0.codes_blocks.shape[0]} "
+            f"P={p_loc} q_cap={qslot.shape[1]} {precision}", lut, qslot, pslot, st0.codes_blocks,
+            st0.norms_blocks, p_loc, cfg.l_bins, cfg.chunk, cfg.metric, precision, cfg.per_bin)
 
     # a 1% allowlist: the exact masked scan against the exact FlatIndex's
     # filtered search (up to ties: the scan reads the int16 refine store at
@@ -4214,7 +4503,7 @@ def phase_bench_cuda(ctx: Ctx):
             raise AssertionError(f"bench_cuda {name} recall@10 {engines[name]['recall']} < 0.99")
     calls = 0 if ctx.rehearse else BC.search_calls(nq, 2048, 6)
     want = {name: 0 for name in counts}
-    want.update(A=calls, A_mma=calls, B=calls, B_mma=calls, C=calls)
+    want.update(A=calls, A_mma=calls, B=calls, B_mma=calls, C_pairs=calls)
     if counts != want:
         raise AssertionError(f"bench_cuda kernel launches {counts}, expected {want}")
 
@@ -4247,10 +4536,10 @@ def main() -> int:
     phase_server(ctx, pq_idx, q1, pq_ids, label="pq_1m ")
     tp = phase_pq_times(ctx, pq_idx, q1, lut)
     del pq_idx, lut
-    iv_idx, iv_ids, iv_launches, lut_c, qslot_c, iv_errs = phase_ivfpq_main(ctx, x1, q1, gt)
+    iv_idx, iv_ids, iv_launches, lut_c, slots_c, iv_errs = phase_ivfpq_main(ctx, x1, q1, gt)
     phase_server(ctx, iv_idx, q1, iv_ids, label="ivfpq_1m ", search_kwargs=IVFPQ_SEARCH)
-    tc = phase_ivfpq_times(ctx, iv_idx, q1, lut_c, qslot_c)
-    del iv_idx, lut_c, qslot_c
+    tc = phase_ivfpq_times(ctx, iv_idx, q1, lut_c, slots_c)
+    del iv_idx, lut_c, slots_c
     cg_idx, cg_ids, cg_launches, chunk, cg_errs = phase_cagra_main(ctx, x1, q1, gt)
     phase_server(ctx, cg_idx, q1, cg_ids, label="cagra_1m ", search_kwargs=CAGRA_SEARCH,
                  max_differ=0.01)
@@ -4327,7 +4616,7 @@ def main() -> int:
         "bound_by": tp["bound_by"],
         "library_ms": tp["library_ms"],
     }, {
-        "name": "pq_grouped_scan_bins",
+        "name": "pq_grouped_scan_pairs",
         "route": "cuda",
         "source": "zvdb_tpu_torch/csrc/pq_scan.cu",
         "replaces": "zvdb_tpu/ops/pallas_pq.py:336",

@@ -173,6 +173,22 @@ def test_scale_row_on_cpu(engine, monkeypatch):
     assert 0.0 < row["recall"] <= 1.0 and row["build_pps"] > 0
 
 
+def test_ivfpq_scale_row_in_two_chunks_on_cpu(monkeypatch):
+    """The scale row's chunked path (build on chunk 0, then add + flush),
+    cut to two chunks of 1,024 rows through SCALE_CHUNK."""
+    torch.set_num_threads(2)
+    monkeypatch.setattr(bench_cuda, "timed_qps", lambda *a, **kw: (1.0, [1.0, 0.5]))
+    monkeypatch.setattr(bench_cuda, "SCALE_CHUNK", 1024)
+    flushes = []
+    flush = bench_cuda.IVFPQIndex.flush
+    monkeypatch.setattr(bench_cuda.IVFPQIndex, "flush",
+                        lambda self: flushes.append(len(self._pending)) or flush(self))
+    tag, row = bench_cuda.run_pq_scale(2048, K, engine="ivfpq", device="cpu")
+    assert tag == "ivfpq_0m" and tuple(row) == bench_cuda.SCALE_KEYS
+    assert flushes == [1]                       # chunk 1 appended by a flush
+    assert 0.0 < row["recall"] <= 1.0 and row["build_pps"] > 0
+
+
 def test_failed_row_exits_nonzero_after_its_line(monkeypatch, capsys, tmp_path):
     def fake(name):
         def row(*args):

@@ -722,7 +722,8 @@ def test_flush_on_the_card_launches_no_kernel(cuda_device):
 
     def counts():
         return (FS.flat_scan_bins.launches, PS.pq_scan_bins.launches,
-                PS.pq_grouped_scan_bins.launches, BS.block_bins.launches,
+                PS.pq_grouped_scan_bins.launches, PS.pq_grouped_scan_pairs.launches,
+                BS.block_bins.launches,
                 ST.flat_topk_pallas.launches, ST.flat_topk_pallas2.launches)
 
     x = clustered(20_000, 64, seed=1, nc=200, spread=0.15)

@@ -433,3 +433,71 @@ def test_save_files_load_in_both_packages(small, refine, tmp_path):
     assert np.asarray(j2.state.refine).dtype == np.asarray(j.state.refine).dtype
     assert len(j2) == len(t) == 3998 and j2._dead == {5, 6}
     _same(j2.search(q[:30], 10), t.search(q[:30], 10), q[:30])
+
+
+def test_chunked_build_with_spill_matches_jax(monkeypatch):
+    """bench_cuda.py's scale-row protocol at a cut size: JAX builds chunk 0
+    with expected_rows, the port carries it by from_numpy, then both add +
+    flush three more chunks, each with a burst that overfills one cluster so
+    the spill-to-neighbour path runs (no repack). The states must agree:
+    codes, ids, counts, centroids, the int16 refine rows and their scales
+    exactly; decoded norms to 1e-6 relative (a sum over subspaces in another
+    order); and the search ids at nprobe=16, rerank=32, up to near-ties (below)."""
+    rng = np.random.default_rng(90)
+    d, n_chunk, n_cent = 96, 1500, 48
+    cents = rng.standard_normal((n_cent, d)).astype(np.float32) * 2.0
+
+    def chunk(i):
+        r = np.random.default_rng(9000 + i)
+        return (cents[r.integers(0, n_cent, n_chunk)]
+                + 0.25 * r.standard_normal((n_chunk, d))).astype(np.float32)
+
+    chunks = [chunk(i) for i in range(4)]
+    for i in (1, 2, 3):   # 200 rows around one chunk-0 row: past its cluster's cap
+        chunks[i][:200] = chunks[0][17 * i] + 0.02 * rng.standard_normal((200, d))
+    cfg = dict(dim=d, n_sub=48, refine="int16", l_bins=256, chunk=512, expected_rows=6000)
+    j = ZJ.IVFPQIndex(ZJ.IVFPQConfig(**cfg))
+    j.build(chunks[0])
+    t = ZT.IVFPQIndex.from_numpy(dataclasses.asdict(j.cfg), _arrays(j), device=CPU)
+    cap0 = t.state.codes_blocks.shape[2]
+
+    moved = []
+    spill = ZT.IVFPQIndex._assign_with_spill
+
+    def spy(self, new, assign, counts, cap, t=8):
+        out = spill(self, new, assign, counts, cap, t)
+        moved.append(-1 if out is None else int((out != assign).sum()))
+        return out
+
+    monkeypatch.setattr(ZT.IVFPQIndex, "_assign_with_spill", spy)
+    for x in chunks[1:]:
+        for idx in (j, t):
+            idx.add(x)
+            idx.flush()
+    assert len(moved) == 3 and min(moved) > 0, moved         # every chunk spilled
+    assert t.state.codes_blocks.shape[2] == cap0 and t.state.n == len(j) == 6000
+    for f in ("codes_blocks", "b_ids", "counts", "centroids"):
+        np.testing.assert_array_equal(getattr(t.state, f).numpy(), np.asarray(getattr(j.state, f)))
+    np.testing.assert_allclose(t.state.norms_blocks.numpy(), np.asarray(j.state.norms_blocks),
+                               rtol=1e-6)
+    for f in ("refine", "r_scales"):
+        np.testing.assert_array_equal(getattr(t.state, f).numpy(), np.asarray(getattr(j.state, f)))
+    # the same ids up to f32 near-ties of the rerank: at 96d a distance of
+    # ~0.35 cancels from norms of ~400, and the packages sum the refine dot
+    # products in other orders. Scores agree within _same's tolerance; where
+    # an id differs, both ids' f64 distances to the query over the (equal)
+    # refine rows agree within it too
+    q = (chunks[3][rng.integers(0, n_chunk, 24)]
+         + 0.05 * rng.standard_normal((24, d))).astype(np.float32)
+    sj, ij = (np.array(a) for a in j.search(q, 10, nprobe=16, rerank=32))
+    st, it = (a.numpy() for a in t.search(q, 10, nprobe=16, rerank=32))
+    tol = 1e-5 * 4.0 * float((q.astype(np.float64) ** 2).sum(1).max())
+    np.testing.assert_allclose(st, sj, rtol=0, atol=tol)
+    flip = it != ij
+    assert flip.mean() < 0.02, flip.sum()
+    rows = t.state.refine.numpy().astype(np.float64) * t.state.r_scales.numpy()[:, None]
+
+    def d64(ids):
+        return ((q[:, None, :].astype(np.float64) - rows[ids]) ** 2).sum(-1)
+
+    np.testing.assert_allclose(d64(it)[flip], d64(ij)[flip], rtol=0, atol=tol)

@@ -55,7 +55,7 @@
 // and a B that is no multiple of QT are masked here, with no padded copy.
 //
 // The per-row ADC sums (adc_row_int8, adc_row_f32) and the fold (fold_row)
-// are device functions, shared with the second entry point below.
+// are device functions, shared with the two entry points below.
 //
 // Kernel C: the grouped IVF-PQ probe scan (zvdb_pq_grouped_scan_bins).
 // Replaces zvdb_tpu/ops/pallas_pq.py:pq_grouped_scan_bins, which runs the
@@ -91,6 +91,45 @@
 // live slot skips staging and the walk. The kernel writes the whole output:
 // empty slots, and every slot of an empty tile, get +inf / -1 here, not in
 // the wrapper.
+//
+// The pair scan (zvdb_pq_grouped_scan_pairs): kernel C redesigned for the
+// card. It computes what the JAX package's search computes from
+// zvdb_tpu/ops/pallas_pq.py:pq_grouped_scan_bins and the scatter after it
+// (zvdb_tpu/index/ivfpq.py:330-349): for the slot of cluster c holding
+// query q at probe rank p, pool[q, p*lw + l] (lw = PER_BIN*L) gets c's bin
+// l as kernel C computes it, its position made flat (c * capp + pos); a
+// pool no slot names reads +inf / -1.
+//
+// What bounds it. The TPU needed the [C, qcap, lw] slot output because its
+// grid walked clusters in order; at ivfpq_1m that output is 0.72 GB of which
+// about B*P of C*qcap slots (9%) are live, and the scatter after it moved
+// another 1.4 GB. What the batch needs is each pool written once (B*P*lw*8
+// bytes, 67 MB at B=2048, P=8, lw=512), the probed clusters' stored codes
+// and norms read once (~12 MB) and the table (0.5 MB): ~0.024 ms at 3.35
+// TB/s. The lookups (~48M a batch) are small beside that, so bytes and the
+// latency of many small blocks bind, not operations.
+//
+// What the design does about it. One block (256 threads) owns one cluster.
+// It compacts the cluster's live slots, a window of ws at a time, with warp
+// ballots (in slot order; the engine fills slots in rank order, so past the
+// live count a window is empty and costs one read of the slot table); a
+// cluster with no live slot stages nothing. On its first live window it
+// stages the cluster's codes [S/2, cap] and norms with cp.async (16 bytes a
+// copy where aligned), once, when they fit PAIR_STAGE_BYTES (else the walk
+// reads them through the read-only cache), beside the window's tables
+// gathered as in kernel C. Work items are (group of NQ = 4 live slots,
+// bin): a thread scores its bin's positions for four slots (two int8 pair
+// words) with the same adc_row_* / score / fold_row calls as kernels B and
+// C, so "int8" scores equal kernel C's bit for bit; at ~3 live slots and
+// <= 3 positions a bin at ivfpq_1m, one item a thread keeps the lanes busy
+// where a thread a (slot, bin) would idle three in four on a one-slot
+// cluster and kernel C's 16-slot tiles computed 13 empty slots. Neighbouring
+// threads take neighbouring bins, so the code reads and the pool writes
+// coalesce; the epilogue writes each live slot's bins straight into its
+// pool. Pools no slot names (pairs q_cap dropped) are covered by the kernel,
+// not by a pre-fill of the whole pool (which would write its 67 MB twice):
+// each live slot marks its (q, p) in a B*P byte map (zeroed by a memset),
+// and a second small kernel writes +inf / -1 over the unmarked pools.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,18 +157,23 @@ __device__ __forceinline__ float bf16_round(float v) {
 // both halves stay in [0, 255] and a half's sum over S <= 256 subspaces
 // stays below 2**16: one 32-bit add sums two queries with no carry between
 // them. Subspaces are summed in order 0..S-1 (integer sums: exact).
+// NP pair words (QT / 2 in kernels B and C, NQ / 2 in the pair scan);
+// LDG reads the codes through the read-only cache (device memory), else
+// plainly (codes staged in shared memory).
+template <bool LDG = true, int NP>
 __device__ __forceinline__ void adc_row_int8(const unsigned* __restrict__ lut, int sc,
                                              const uint8_t* __restrict__ codes_t,
                                              long long n_rows, long long c, int nb,
-                                             unsigned (&acc)[QT / 2]) {
+                                             unsigned (&acc)[NP]) {
 #pragma unroll
-  for (int p = 0; p < QT / 2; ++p) acc[p] = 0u;
+  for (int p = 0; p < NP; ++p) acc[p] = 0u;
   for (int j = 0; j < nb; ++j) {
-    const unsigned byte = __ldg(codes_t + (long long)j * n_rows + c);
+    const uint8_t* at = codes_t + (long long)j * n_rows + c;
+    const unsigned byte = LDG ? __ldg(at) : *at;
     const int o0 = (2 * j) * 16 + (byte & 15u);
     const int o1 = (2 * j + 1) * 16 + (byte >> 4);
 #pragma unroll
-    for (int p = 0; p < QT / 2; ++p) {
+    for (int p = 0; p < NP; ++p) {
       acc[p] += lut[p * sc + o0];
       acc[p] += lut[p * sc + o1];
     }
@@ -137,30 +181,32 @@ __device__ __forceinline__ void adc_row_int8(const unsigned* __restrict__ lut, i
 }
 
 // Query q's exact integer sum out of the packed pair sums.
-__device__ __forceinline__ int int8_sum(const unsigned (&acc)[QT / 2], int q, int n_sub) {
+template <int NP>
+__device__ __forceinline__ int int8_sum(const unsigned (&acc)[NP], int q, int n_sub) {
   return (int)((acc[q / 2] >> (16 * (q % 2))) & 0xFFFFu) - 128 * n_sub;
 }
 
 // DEFAULT / HIGH: acc[q] (and acc_lo[q] for HIGH) = sum over subspaces
 // 0..S-1, in that order, of query q's f32 table entry at row c's code. lut
-// is [QT][planes][S*16].
-template <int PREC>
+// is [NQ][planes][S*16]; LDG as in adc_row_int8.
+template <int PREC, bool LDG = true, int NQ>
 __device__ __forceinline__ void adc_row_f32(const float* __restrict__ lut, int sc,
                                             const uint8_t* __restrict__ codes_t,
                                             long long n_rows, long long c, int nb,
-                                            float (&acc)[QT], float (&acc_lo)[QT]) {
+                                            float (&acc)[NQ], float (&acc_lo)[NQ]) {
   constexpr int P = PREC == kHigh ? 2 : 1;
 #pragma unroll
-  for (int q = 0; q < QT; ++q) {
+  for (int q = 0; q < NQ; ++q) {
     acc[q] = 0.f;
     acc_lo[q] = 0.f;
   }
   for (int j = 0; j < nb; ++j) {
-    const unsigned byte = __ldg(codes_t + (long long)j * n_rows + c);
+    const uint8_t* at = codes_t + (long long)j * n_rows + c;
+    const unsigned byte = LDG ? __ldg(at) : *at;
     const int o0 = (2 * j) * 16 + (byte & 15u);
     const int o1 = (2 * j + 1) * 16 + (byte >> 4);
 #pragma unroll
-    for (int q = 0; q < QT; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const float* l = lut + q * P * sc;
       acc[q] = __fadd_rn(acc[q], l[o0]);
       acc[q] = __fadd_rn(acc[q], l[o1]);
@@ -478,6 +524,246 @@ int launch_grouped_prec(int per_bin, dim3 grid, int threads, size_t smem, cudaSt
                                  norms_blocks, out_s, out_i, B, qcap, cap, n_sub, L, factor);
 }
 
+// ---------------------------------------------------------------------------
+// The pair scan (zvdb_pq_grouped_scan_pairs): kernel C's scores, written
+// straight into each (query, probe) pool. See the note at the top.
+
+constexpr int PAIR_THREADS = 256;   // threads a block: one block a cluster
+constexpr int NQ = 4;               // slots a thread scores at once (two int8 pair words)
+constexpr int PAIR_LUT_BYTES = 16384;     // tables of a window of slots, at most (>= NQ slots)
+constexpr int PAIR_STAGE_BYTES = 49152;   // a cluster's codes and norms are staged up to this
+
+// Shared-memory bytes of one slot's table: half an int8 pair word an entry,
+// or one f32 word an entry and plane.
+template <int PREC> __host__ __device__ constexpr int slot_bytes(int sc) {
+  return PREC == kInt8 ? 2 * sc : (PREC == kHigh ? 2 : 1) * 4 * sc;
+}
+
+__host__ __device__ constexpr int round16(int v) { return (v + 15) & ~15; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// Copy `bytes` (a multiple of 4, both ends 4-aligned) from device memory to
+// shared memory with cp.async, 16 bytes a copy where the source and the
+// length allow it (dst is 16-aligned). The caller commits and waits.
+__device__ __forceinline__ void stage_async(void* dst, const void* src, int bytes) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  if (((reinterpret_cast<uintptr_t>(src) | (uintptr_t)bytes) & 15) == 0) {
+    for (int o = 16 * threadIdx.x; o < bytes; o += 16 * PAIR_THREADS) cp_async16(d + o, s + o);
+  } else {
+    for (int o = 4 * threadIdx.x; o < bytes; o += 4 * PAIR_THREADS) cp_async4(d + o, s + o);
+  }
+}
+
+template <int PREC, int PER_BIN, bool STAGE>
+__global__ void __launch_bounds__(PAIR_THREADS)
+pq_grouped_pairs_kernel(const void* __restrict__ lut_in, const float* __restrict__ scales,
+                        const int* __restrict__ qslot, const int* __restrict__ pslot,
+                        const uint8_t* __restrict__ codes_blocks,
+                        const float* __restrict__ norms_blocks, float* __restrict__ pool_s,
+                        int* __restrict__ pool_i, uint8_t* __restrict__ covered, int B, int P,
+                        int qcap, int cap, int capp, int n_sub, int L, int ws, float factor) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sc = n_sub * 16;
+  const int nb = n_sub / 2;
+  const long long c = blockIdx.x;
+  const int t = threadIdx.x;
+  const float inf = __int_as_float(0x7f800000);
+  // [codes nb*cap | norms cap] when staged, then the window's tables, its
+  // scales, its live slots' queries and probe ranks, and a count a warp
+  const int codes_bytes = STAGE ? round16(nb * cap) + round16(4 * cap) : 0;
+  uint8_t* s_codes = smem;
+  float* s_norms = reinterpret_cast<float*>(smem + round16(nb * cap));
+  unsigned* lut_w = reinterpret_cast<unsigned*>(smem + codes_bytes);   // INT8 pair words
+  float* lut_f = reinterpret_cast<float*>(lut_w);                       // f32 planes
+  float* scl = reinterpret_cast<float*>(smem + codes_bytes + ws * slot_bytes<PREC>(sc));
+  int* list_q = reinterpret_cast<int*>(scl + ws);
+  int* list_p = list_q + ws;
+  int* warp_n = list_p + ws;
+
+  const uint8_t* codes_c = codes_blocks + c * nb * (long long)cap;   // [S/2, cap]
+  const float* norms_c = norms_blocks + c * (long long)cap;
+  const uint8_t* codes = STAGE ? s_codes : codes_c;
+  const long long row = (long long)P * PER_BIN * L;   // a query's pool width
+  bool staged = false;
+
+  for (int w0 = 0; w0 < qcap; w0 += ws) {
+    // the window's live slots, compacted in slot order
+    int q = -1, p = -1;
+    if (t < ws && w0 + t < qcap) {
+      q = qslot[c * qcap + w0 + t];
+      p = pslot[c * qcap + w0 + t];
+      if (q < 0 || q >= B || p < 0 || p >= P) q = -1;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, q >= 0);
+    if (t % 32 == 0) warp_n[t / 32] = __popc(ballot);
+    __syncthreads();
+    int before = 0, n_live = 0;
+#pragma unroll
+    for (int w = 0; w < PAIR_THREADS / 32; ++w) {
+      before += w < t / 32 ? warp_n[w] : 0;
+      n_live += warp_n[w];
+    }
+    if (q >= 0) {
+      const int k = before + __popc(ballot & ((1u << (t % 32)) - 1u));
+      list_q[k] = q;
+      list_p[k] = p;
+      covered[(long long)q * P + p] = 1;
+    }
+    if (n_live == 0) {   // uniform: every thread read the same counts
+      __syncthreads();   // warp_n is rewritten by the next window
+      continue;
+    }
+    if (STAGE && !staged) {   // the cluster, once, on its first live window
+      stage_async(s_codes, codes_c, nb * cap);
+      stage_async(s_norms, norms_c, 4 * cap);
+      asm volatile("cp.async.commit_group;\n" ::);
+      staged = true;
+    }
+    __syncthreads();   // list_q / list_p complete
+    const int groups = (n_live + NQ - 1) / NQ;
+    if constexpr (PREC == kInt8) {
+      const int8_t* lut8 = static_cast<const int8_t*>(lut_in);
+      for (int e = t; e < groups * (NQ / 2) * sc; e += PAIR_THREADS) {
+        const int pp = e / sc, k = e % sc;
+        const int a = 2 * pp, b = 2 * pp + 1;
+        const unsigned lo =
+            a < n_live ? (unsigned)((int)lut8[(long long)list_q[a] * sc + k] + 128) : 128u;
+        const unsigned hi =
+            b < n_live ? (unsigned)((int)lut8[(long long)list_q[b] * sc + k] + 128) : 128u;
+        lut_w[e] = lo | (hi << 16);
+      }
+    } else {
+      constexpr int PL = PREC == kHigh ? 2 : 1;
+      const float* lut32 = static_cast<const float*>(lut_in);
+      for (int e = t; e < groups * NQ * sc; e += PAIR_THREADS) {
+        const int a = e / sc, k = e % sc;
+        const float v = a < n_live ? lut32[(long long)list_q[a] * sc + k] : 0.f;
+        const float hi = bf16_round(v);
+        lut_f[a * PL * sc + k] = hi;
+        if constexpr (PREC == kHigh) lut_f[a * PL * sc + sc + k] = bf16_round(v - hi);
+      }
+    }
+    for (int a = t; a < groups * NQ; a += PAIR_THREADS)
+      scl[a] = (PREC == kInt8 && a < n_live) ? scales[list_q[a]] : 1.f;
+    if (STAGE) asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+
+    // one item = (group of NQ live slots, bin); neighbouring threads take
+    // neighbouring bins, so code reads and pool writes coalesce
+    for (int item = t; item < groups * L; item += PAIR_THREADS) {
+      const int g = item / L, l = item % L;
+      float s1[NQ], s2[NQ], scale[NQ];
+      int i1[NQ], i2[NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        s1[j] = inf;
+        s2[j] = inf;
+        i1[j] = -1;
+        i2[j] = -1;
+        scale[j] = scl[g * NQ + j];
+      }
+      for (int pos = l; pos < cap; pos += L) {
+        const float nrm = STAGE ? s_norms[pos] : __ldg(norms_c + pos);
+        if (nrm == inf) continue;   // empty or tombstoned row: +inf, never taken
+        if constexpr (PREC == kInt8) {
+          unsigned acc[NQ / 2];
+          adc_row_int8<!STAGE>(lut_w + g * (NQ / 2) * sc, sc, codes, cap, pos, nb, acc);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const float dots = __fmul_rn(__int2float_rn(int8_sum(acc, j, n_sub)), scale[j]);
+            fold_row<PER_BIN>(score(dots, nrm, factor), pos, s1[j], i1[j], s2[j], i2[j]);
+          }
+        } else {
+          constexpr int PL = PREC == kHigh ? 2 : 1;
+          float acc[NQ], acc_lo[NQ];
+          adc_row_f32<PREC, !STAGE>(lut_f + g * NQ * PL * sc, sc, codes, cap, pos, nb, acc,
+                                    acc_lo);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const float dots = PREC == kHigh ? __fadd_rn(acc[j], acc_lo[j]) : acc[j];
+            fold_row<PER_BIN>(score(dots, nrm, factor), pos, s1[j], i1[j], s2[j], i2[j]);
+          }
+        }
+      }
+      // the epilogue: each live slot's bins go to its own pool, positions
+      // made flat (cluster * capp + pos)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const int k = g * NQ + j;
+        if (k >= n_live) break;
+        const long long o = list_q[k] * row + (long long)list_p[k] * PER_BIN * L + l;
+        pool_s[o] = s1[j];
+        pool_i[o] = i1[j] >= 0 ? (int)(c * capp + i1[j]) : -1;
+        if constexpr (PER_BIN == 2) {
+          pool_s[o + L] = s2[j];
+          pool_i[o + L] = i2[j] >= 0 ? (int)(c * capp + i2[j]) : -1;
+        }
+      }
+    }
+    __syncthreads();   // the next window rewrites the tables and lists
+  }
+}
+
+// +inf / -1 over every pool no slot covered: the pairs q_cap dropped, and
+// probe ranks no slot names. One warp a pool.
+__global__ void __launch_bounds__(PAIR_THREADS)
+fill_uncovered_kernel(const uint8_t* __restrict__ covered, float* __restrict__ pool_s,
+                      int* __restrict__ pool_i, long long n_pools, int lw) {
+  const long long pool = (long long)blockIdx.x * (PAIR_THREADS / 32) + threadIdx.x / 32;
+  if (pool >= n_pools || covered[pool]) return;
+  const float inf = __int_as_float(0x7f800000);
+  for (int e = threadIdx.x % 32; e < lw; e += 32) {
+    pool_s[pool * lw + e] = inf;
+    pool_i[pool * lw + e] = -1;
+  }
+}
+
+template <int PREC, int PER_BIN, bool STAGE>
+int launch_pairs(int C, size_t smem, cudaStream_t stream, const void* lut, const float* scales,
+                 const int* qslot, const int* pslot, const uint8_t* codes_blocks,
+                 const float* norms_blocks, float* pool_s, int* pool_i, uint8_t* covered, int B,
+                 int P, int qcap, int cap, int capp, int n_sub, int L, int ws, float factor) {
+  auto kernel = pq_grouped_pairs_kernel<PREC, PER_BIN, STAGE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<C, PAIR_THREADS, smem, stream>>>(lut, scales, qslot, pslot, codes_blocks,
+                                             norms_blocks, pool_s, pool_i, covered, B, P, qcap,
+                                             cap, capp, n_sub, L, ws, factor);
+  return (int)cudaGetLastError();
+}
+
+template <int PREC>
+int launch_pairs_prec(int per_bin, bool stage, int C, size_t smem, cudaStream_t stream,
+                      const void* lut, const float* scales, const int* qslot, const int* pslot,
+                      const uint8_t* codes_blocks, const float* norms_blocks, float* pool_s,
+                      int* pool_i, uint8_t* covered, int B, int P, int qcap, int cap, int capp,
+                      int n_sub, int L, int ws, float factor) {
+#define ZVDB_PAIRS(PB, ST)                                                                    \
+  return launch_pairs<PREC, PB, ST>(C, smem, stream, lut, scales, qslot, pslot, codes_blocks, \
+                                    norms_blocks, pool_s, pool_i, covered, B, P, qcap, cap,   \
+                                    capp, n_sub, L, ws, factor)
+  if (per_bin == 1) {
+    if (stage) ZVDB_PAIRS(1, true);
+    ZVDB_PAIRS(1, false);
+  }
+  if (stage) ZVDB_PAIRS(2, true);
+  ZVDB_PAIRS(2, false);
+#undef ZVDB_PAIRS
+}
+
 }  // namespace
 
 // Launches the scan on `stream`; returns a CUDA error code (0 on success).
@@ -563,4 +849,74 @@ extern "C" int zvdb_pq_grouped_scan_bins(const void* lut, const void* scales, co
       return launch_grouped_prec<kDefault>(per_bin, grid, threads, smem, s, lut, scl, qs, cb,
                                            nrm, os, oi, B, qcap, cap, n_sub, L, factor);
   }
+}
+
+// Launches the pair scan on `stream`; returns a CUDA error code (0 on
+// success). lut, scales, codes_blocks and norms_blocks as for the grouped
+// scan; qslot and pslot [C, qcap] int32: slot r of cluster c holds query
+// qslot[c, r] in [0, B) at probe rank pslot[c, r] in [0, P), or is empty
+// (anything else); no two slots name one (query, rank). pool_s [B,
+// P*per_bin*L] f32 and pool_i the same int32 are every element written:
+// query q's pool p holds the bins of the slot naming (q, p), with positions
+// c * capp + pos, else +inf / -1. covered [B*P] uint8 is scratch. Every
+// array contiguous on the device. Allocates nothing, does not sync.
+extern "C" int zvdb_pq_grouped_scan_pairs(const void* lut, const void* scales, const void* qslot,
+                                          const void* pslot, const void* codes_blocks,
+                                          const void* norms_blocks, void* pool_s, void* pool_i,
+                                          void* covered, int B, int P, int C, int qcap, int cap,
+                                          int capp, int n_sub, int L, float factor,
+                                          int precision, int per_bin, void* stream) {
+  if (B <= 0 || P <= 0 || C < 0 || qcap < 0 || cap < 0 || capp < cap || L <= 0 || n_sub <= 0 ||
+      n_sub % 8 != 0 || precision < 0 || precision > 2 || per_bin < 1 || per_bin > 2 ||
+      (precision == kInt8 && n_sub > 256) || (long long)C * capp >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const int sc = n_sub * 16;
+  const int per = precision == kInt8 ? slot_bytes<kInt8>(sc)
+                  : precision == kHigh ? slot_bytes<kHigh>(sc) : slot_bytes<kDefault>(sc);
+  // the window: as many slots as PAIR_LUT_BYTES of tables hold, a multiple
+  // of NQ, at least NQ, at most a thread each and qcap rounded up to NQ
+  int ws = PAIR_LUT_BYTES / per / NQ * NQ;
+  ws = ws < NQ ? NQ : (ws > PAIR_THREADS ? PAIR_THREADS : ws);
+  const int q_round = (qcap + NQ - 1) / NQ * NQ;
+  ws = ws < q_round ? ws : q_round;
+  const long long stage_bytes =
+      ((long long)(n_sub / 2) * cap + 15) / 16 * 16 + (4ll * cap + 15) / 16 * 16;
+  const bool stage = stage_bytes <= PAIR_STAGE_BYTES;
+  const size_t smem = (stage ? (size_t)stage_bytes : 0) + (size_t)ws * per
+                      + (size_t)ws * 12 + (PAIR_THREADS / 32) * 4;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_pools = (long long)B * P;
+  cudaError_t e = cudaMemsetAsync(covered, 0, n_pools, s);
+  if (e != cudaSuccess) return (int)e;
+  float* ps = static_cast<float*>(pool_s);
+  int* pi = static_cast<int*>(pool_i);
+  uint8_t* cov = static_cast<uint8_t*>(covered);
+  if (C > 0 && qcap > 0) {
+    const int* qs = static_cast<const int*>(qslot);
+    const int* pp = static_cast<const int*>(pslot);
+    const uint8_t* cb = static_cast<const uint8_t*>(codes_blocks);
+    const float* scl = static_cast<const float*>(scales);
+    const float* nrm = static_cast<const float*>(norms_blocks);
+    int rc;
+    switch (precision) {
+      case kInt8:
+        rc = launch_pairs_prec<kInt8>(per_bin, stage, C, smem, s, lut, scl, qs, pp, cb, nrm, ps,
+                                      pi, cov, B, P, qcap, cap, capp, n_sub, L, ws, factor);
+        break;
+      case kHigh:
+        rc = launch_pairs_prec<kHigh>(per_bin, stage, C, smem, s, lut, scl, qs, pp, cb, nrm, ps,
+                                      pi, cov, B, P, qcap, cap, capp, n_sub, L, ws, factor);
+        break;
+      default:
+        rc = launch_pairs_prec<kDefault>(per_bin, stage, C, smem, s, lut, scl, qs, pp, cb, nrm,
+                                         ps, pi, cov, B, P, qcap, cap, capp, n_sub, L, ws,
+                                         factor);
+    }
+    if (rc != 0) return rc;
+  }
+  const long long blocks = (n_pools + PAIR_THREADS / 32 - 1) / (PAIR_THREADS / 32);
+  fill_uncovered_kernel<<<(unsigned)blocks, PAIR_THREADS, 0, s>>>(cov, ps, pi, n_pools,
+                                                                  per_bin * L);
+  return (int)cudaGetLastError();
 }

@@ -4,10 +4,11 @@
 The sublinear scale tier. The corpus is grouped into k-means clusters stored
 as contiguous blocks of nibble-packed PQ codes; a search picks each query's
 nprobe nearest centroids, slots the (query, cluster) pairs per cluster, and
-the grouped scan kernel (ops/pq_scan.py:pq_grouped_scan_bins, kernel C in
+the grouped pair scan (ops/pq_scan.py:pq_grouped_scan_pairs, in
 csrc/pq_scan.cu) scores every probed cluster against only the queries that
-probed it. The per-bin winners form a candidate pool that an exact rescore
-over the refine store (int16 by default) cuts to k.
+probed it, writing each (query, probe) pool in place. The per-bin winners
+form a candidate pool that an exact rescore over the refine store (int16 by
+default) cuts to k.
 
 Codes are non-residual (one global codebook set, trained on a sample), so a
 row's ADC score does not depend on its cluster: the cluster decides only
@@ -35,7 +36,7 @@ import torch
 from ..ops import distance as D
 from ..ops import pq as PQ
 from ..ops import topk as T
-from ..ops.pq_scan import grouped_geometry, pq_grouped_scan_bins
+from ..ops.pq_scan import grouped_geometry, pq_grouped_scan_pairs
 from ..utils.config import _VALID_METRICS
 from ..utils.filter_policy import resolve_filter_mode
 from ..utils.masks import allowed_mask
@@ -234,41 +235,28 @@ def ivfpq_search_impl(
     """Batched IVF-PQ search. Returns (user scores [B, k], ext ids [B, k]).
 
     Probe scores -> exact top-p clusters (ties to the lower cluster) ->
-    per-cluster slotting -> the grouped scan over probed blocks -> flat
-    positions scattered back per (query, probe) -> a top-(k*rerank) pool ->
+    per-cluster slotting -> the pair scan over probed blocks, into flat
+    positions per (query, probe) -> a top-(k*rerank) pool ->
     exact refine rescore -> top-k. `id_map` / `c_mask` serve a sharded
     wrapper (local ids, padded cluster slots), as in the JAX package."""
     qp = D.preprocess_queries(q, metric)
     qr = PQ.apply_rotation(qp, state.rot)
     b = qp.shape[0]
     c, _, cap = state.codes_blocks.shape
-    dev = qp.device
     p, qslot, pslot = _probe_slots(state, qp, nprobe, group_slack, scan_precision, metric,
                                    c_mask)
 
     lut = PQ.adc_lut(qr, state.codebooks)                                  # [B, S, 16]
-    bin_s, bin_pos = pq_grouped_scan_bins(
-        lut, qslot, state.codes_blocks, state.norms_blocks, l_bins=l_bins, chunk=chunk,
-        metric=metric, precision=scan_precision, per_bin=per_bin)
-    lw = per_bin * l_bins                                                  # [C, qcap, lw]
-
-    # The pool carries flat positions (cluster * capp + pos), not ids: only
-    # the k*rerank survivors of the pool cut pay the id-table gather.
+    # each (query, probe) pool of the grouped scan, written in place: the
+    # pool carries flat positions (cluster * capp + pos), not ids, and only
+    # the k*rerank survivors of the pool cut pay the id-table gather
+    merged_s, merged_i = pq_grouped_scan_pairs(
+        lut, qslot, pslot, state.codes_blocks, state.norms_blocks, p, l_bins=l_bins,
+        chunk=chunk, metric=metric, precision=scan_precision, per_bin=per_bin)
+    lw = per_bin * l_bins                                                  # [B, p * lw]
     _, capp = grouped_geometry(cap, l_bins, chunk)
     ids_p = state.b_ids if capp == cap else torch.cat(
         [state.b_ids, state.b_ids.new_full((c, capp - cap), -1)], dim=1)
-    flatpos = torch.arange(c, dtype=torch.int32, device=dev)[:, None, None] * capp + bin_pos
-    flatpos = torch.where(bin_pos >= 0, flatpos, -1)
-
-    # scatter back to per-query probe slots (trash row b absorbs empty slots)
-    out_s = torch.full((b + 1, p, lw), _INF, dtype=torch.float32, device=dev)
-    out_i = torch.full((b + 1, p, lw), -1, dtype=torch.int32, device=dev)
-    wq = torch.where(qslot >= 0, qslot, b).long()
-    wp = pslot.clamp(min=0).long()
-    out_s[wq, wp] = bin_s
-    out_i[wq, wp] = flatpos
-    merged_s = out_s[:b].reshape(b, p * lw)
-    merged_i = out_i[:b].reshape(b, p * lw)
 
     def map_ids(pos):
         mapped = ids_p.reshape(-1)[pos.clamp(min=0).long()]

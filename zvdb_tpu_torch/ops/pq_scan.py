@@ -16,16 +16,21 @@ norms and the pool.
 over cluster blocks codes_blocks [C, S/2, cap], each scored only against the
 queries slotted to it in qslot [C, qcap]. Row `pos` of a cluster falls in
 bin pos % L, and the outputs hold positions within the cluster, not ids.
+`pq_grouped_scan_pairs` is what the IVF-PQ search runs: the same bins,
+written straight into each slot's (query, probe rank) pool with flat
+positions (cluster * capp + pos), as the JAX package's search scatters them.
 
 On a CUDA tensor `pq_scan_bins` launches kernel B, chosen by precision
 alone: "int8" (the engines' default) runs on the tensor cores
 (csrc/pq_scan_mma.cu, int8 mma.sync over a one-hot built in registers),
 "default" and "high" on the CUDA cores (csrc/pq_scan.cu, table lookups from
 shared memory). `pq_grouped_scan_bins` launches kernel C, the second entry
-point of csrc/pq_scan.cu, in every precision. Each source is built with nvcc
-at first use into build/kernels/ and bound with ctypes. On a CPU tensor they
-run `_pq_scan_bins_plain` and `_pq_grouped_scan_bins_plain`, the same
-functions in plain PyTorch, which the tests hold against the JAX package.
+point of csrc/pq_scan.cu, and `pq_grouped_scan_pairs` the pair scan, its
+third, in every precision. Each source is built with nvcc at first use into
+build/kernels/ and bound with ctypes. On a CPU tensor they run
+`_pq_scan_bins_plain`, `_pq_grouped_scan_bins_plain` and
+`_pq_grouped_scan_pairs_plain`, the same functions in plain PyTorch, which
+the tests hold against the JAX package.
 """
 from __future__ import annotations
 
@@ -486,3 +491,128 @@ def pq_grouped_scan_bins(
 
 
 pq_grouped_scan_bins.launches = 0
+
+
+def build_pairs():
+    """The pair scan's entry point in the same library as `build`."""
+    fn, info = cuda_build.load(
+        "pq_scan.cu", "zvdb_pq_grouped_scan_pairs",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    build_info.update(info)
+    return fn
+
+
+def slots_to_pools(bin_s, bin_pos, qslot, pslot, n_probe: int, capp: int, b: int):
+    """The grouped scan's slot output [C, qcap, lw] as per-query pools
+    [b, n_probe*lw], as the JAX package's search scatters it: positions made
+    flat (cluster * capp + pos), each slot's bins written to its (query,
+    probe rank), empty slots to a trash row b that is cut off, every other
+    pool +inf / -1."""
+    c, _, lw = bin_s.shape
+    dev = bin_s.device
+    flatpos = torch.arange(c, dtype=torch.int32, device=dev)[:, None, None] * capp + bin_pos
+    flatpos = torch.where(bin_pos >= 0, flatpos, -1)
+    out_s = torch.full((b + 1, n_probe, lw), float("inf"), dtype=torch.float32, device=dev)
+    out_i = torch.full((b + 1, n_probe, lw), -1, dtype=torch.int32, device=dev)
+    wq = torch.where(qslot >= 0, qslot, b).long()
+    wp = pslot.clamp(min=0).long()
+    out_s[wq, wp] = bin_s
+    out_i[wq, wp] = flatpos
+    return out_s[:b].reshape(b, n_probe * lw), out_i[:b].reshape(b, n_probe * lw)
+
+
+def _pq_grouped_scan_pairs_plain(lut, qslot, pslot, codes_blocks, norms_blocks, n_probe: int,
+                                 l_bins: int, chunk: int, metric: str, precision: str,
+                                 per_bin: int):
+    """The pair scan in plain PyTorch: the grouped scan's plain version,
+    then `slots_to_pools`."""
+    bin_s, bin_pos = _pq_grouped_scan_bins_plain(lut, qslot, codes_blocks, norms_blocks, l_bins,
+                                                 chunk, metric, precision, per_bin)
+    _, capp = grouped_geometry(codes_blocks.shape[2], l_bins, chunk)
+    return slots_to_pools(bin_s, bin_pos, qslot, pslot, n_probe, capp, lut.shape[0])
+
+
+def pq_grouped_scan_pairs(
+    lut: torch.Tensor,            # [B, S, 16] f32 ADC table (adc_lut of rotated queries)
+    qslot: torch.Tensor,          # [C, qcap] int32 query of each slot; -1 empty
+    pslot: torch.Tensor,          # [C, qcap] int32 probe rank of each slot; -1 empty
+    codes_blocks: torch.Tensor,   # [C, S/2, cap] uint8 nibble-packed codes per cluster
+    norms_blocks: torch.Tensor,   # [C, cap] f32 decoded squared norms; +inf invalid
+    n_probe: int,
+    l_bins: int = 128,
+    chunk: int = 512,
+    metric: str = "l2",
+    precision: str = "default",
+    per_bin: int = 2,
+):
+    """The IVF-PQ probe scan into per-query pools: `pq_grouped_scan_bins`
+    with its slot output scattered to (query, probe rank), as the JAX
+    package's search does after its kernel.
+
+    Returns (pool_s [B, n_probe*lw] f32 surrogates, pool_pos int32), lw =
+    per_bin * l_bins. For the slot of cluster c that holds query q at probe
+    rank p, pool[q, p*lw:(p+1)*lw] holds c's per-bin best (and runner-up)
+    scores and their flat positions c * capp + pos (capp from
+    `grouped_geometry`). A bin that saw no valid row, and every pool that
+    no slot names (a pair q_cap dropped, a rank a query lacks), reads
+    +inf / -1. No two slots may name one (query, rank), as `_slot_pairs`
+    guarantees.
+
+    On a CUDA tensor it launches the pair scan, the third entry point of
+    csrc/pq_scan.cu, in every precision (counted by `launches`): it scores
+    only the live slots and writes each pool in place, with no [C, qcap, lw]
+    slot output. A CPU tensor takes the plain version and counts nothing.
+    """
+    _check_grouped_args(lut, qslot, codes_blocks, norms_blocks, l_bins, chunk, metric,
+                        precision, per_bin)
+    if pslot.shape != qslot.shape:
+        raise ValueError(f"pslot {tuple(pslot.shape)} must match qslot {tuple(qslot.shape)}")
+    if n_probe < 1:
+        raise ValueError(f"n_probe must be >= 1, got {n_probe}")
+    b, n_sub, _ = lut.shape
+    c, _, cap = codes_blocks.shape
+    width = n_probe * per_bin * l_bins
+    if b == 0:
+        return (torch.empty((0, width), dtype=torch.float32, device=lut.device),
+                torch.empty((0, width), dtype=torch.int32, device=lut.device))
+    if lut.device.type == "cpu":
+        return _pq_grouped_scan_pairs_plain(lut, qslot, pslot, codes_blocks, norms_blocks,
+                                            n_probe, l_bins, chunk, metric, precision, per_bin)
+    dev = lut.device
+    if dev.type != "cuda" or any(t.device != dev for t in (qslot, pslot, codes_blocks,
+                                                            norms_blocks)):
+        raise ValueError("pq_grouped_scan_pairs: every input must lie on one CUDA device")
+    if lut.dtype != torch.float32 or norms_blocks.dtype != torch.float32:
+        raise TypeError("pq_grouped_scan_pairs: lut and norms_blocks must be float32")
+    if (codes_blocks.dtype != torch.uint8 or qslot.dtype != torch.int32
+            or pslot.dtype != torch.int32):
+        raise TypeError("pq_grouped_scan_pairs: codes_blocks must be uint8, qslot and pslot int32")
+    _, capp = grouped_geometry(cap, l_bins, chunk)
+    if c * capp >= 2**31 or b * n_probe >= 2**31 or (precision == "int8" and n_sub > 256):
+        raise ValueError("pq_grouped_scan_pairs: needs C * capp and B * n_probe < 2**31 and, "
+                         "for int8, n_sub <= 256")
+    pool_s = torch.empty((b, width), dtype=torch.float32, device=dev)
+    pool_i = torch.empty((b, width), dtype=torch.int32, device=dev)
+    covered = torch.empty(b * n_probe, dtype=torch.uint8, device=dev)
+    lut_k, scales = _prep_lut(lut, precision)
+    lut_k = lut_k.contiguous()
+    qslot, pslot = qslot.contiguous(), pslot.contiguous()
+    codes_blocks = codes_blocks.contiguous()
+    norms_blocks = norms_blocks.contiguous()
+    kernel = build_pairs()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = kernel(
+            lut_k.data_ptr(), scales.data_ptr(), qslot.data_ptr(), pslot.data_ptr(),
+            codes_blocks.data_ptr(), norms_blocks.data_ptr(), pool_s.data_ptr(),
+            pool_i.data_ptr(), covered.data_ptr(), b, n_probe, c, qslot.shape[1], cap, capp,
+            n_sub, l_bins, 2.0 if metric == "l2" else 1.0, _PRECISION_CODE[precision], per_bin,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"pq_grouped_scan_pairs: kernel launch failed with CUDA error {rc}")
+    pq_grouped_scan_pairs.launches += 1
+    return pool_s, pool_i
+
+
+pq_grouped_scan_pairs.launches = 0
