@@ -150,12 +150,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                   the query tiles read, the plain version, the product +
                   selection yardstick, the bounds (the f32 function; E's and
                   F's own work);
- 19. hop        - kernel G (fused_hop_scores, csrc/hop_scores.cu) against
-                  its plain version (gather + einsum) at small shapes with
-                  duplicated ids, then over the corpus at the experiment's
-                  shape (B=4992, K=256) and the cagra_1m hop (B=2048, K=128 of
-                  which 96 live): launches, ms, plain, gather alone, bound
-                  (the bytes of each distinct row once, ids, q and output);
+ 19. hop        - kernel G (fused_hop_scores, csrc/hop_scores.cu), both
+                  routes (direct; grouped: the counting pass into row-window
+                  order, then the scorer) against the plain version (gather +
+                  einsum) at small shapes with duplicated ids, two ids
+                  outside [0, N) (NaN) and corpora of 5000 and 7 rows, and
+                  the counting pass (window_order) equal to its plain
+                  version; then over the corpus at the experiment's shape
+                  (B=4992, K=256) and the cagra_1m hop (B=2048, K=128 of
+                  which 96 live), each through the route the wrapper chooses:
+                  launches == hops and the grouped count == the hops routed
+                  there; each route's ms (20 calls, through the wrapper and
+                  its entry point alone) and share of the bound (the bytes of
+                  each distinct row once, ids, q and output), the counting
+                  pass's entry point alone, the shipped route beside the old
+                  kernel's times (PERF.md), plain and gather alone;
  20. hnsw main  - the hnsw_1m configuration (the same corpus and queries,
                   HNSWConfig(dim=128, m=16, ef_construction=100,
                   build_batch=8192, block_topk="pallas"), SearchConfig()
@@ -340,6 +349,7 @@ The last two lines are the kernels' JSON record and the device JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -2396,20 +2406,92 @@ def _hop_ids(rng, b, k, n, live=None):
     return ids
 
 
+# kernel G's times before its redesign: its first, one-route kernel at these
+# shapes (PERF.md section 6, with the card's name and power limit)
+OLD_G_MS = {"experiment": "0.2264-0.2352", "cagra_1m hop": "0.0464-0.0522"}
+HOP_ROUTES = ("direct", "grouped")
+
+
+@contextlib.contextmanager
+def _hop_route(HS, route):
+    """Within the block, kernel G's wrapper takes `route` whatever the shape
+    (its `choose_route` swapped out), so each route is held and timed."""
+    chosen, HS.choose_route = HS.choose_route, lambda b, k, n: route
+    try:
+        yield
+    finally:
+        HS.choose_route = chosen
+
+
+def _hop_scratch_ints(ctx: Ctx, HS):
+    """The kernel's zvdb_hop_scratch_ints; when rehearsing on the CPU, a
+    stand-in that takes every window count."""
+    return (lambda p, n, shift: 0) if ctx.rehearse else HS.build_grouped().scratch_ints
+
+
+def _hop_entry_ms(ctx: Ctx, HS, route, idx, q, x):
+    """ms of a route's C entry point alone, its scratch made beforehand (20
+    calls, CUDA events): the device's pace where the wrapper's host work
+    would set it. None when rehearsing."""
+    if ctx.rehearse:
+        return None
+    (b, k), (n, d) = idx.shape, x.shape
+    out = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (idx.data_ptr(), q.data_ptr(), x.data_ptr(), out.data_ptr(), b, k, n, d)
+    if route == "direct":
+        fn, more = HS.build(), ()
+    else:   # "grouped", or its counting pass alone
+        fn = HS.build_grouped()
+        shift = HS.window_shift(n, d, fn.scratch_ints)
+        need = fn.scratch_ints(b * k, n, shift)
+        scratch = torch.empty(need, dtype=torch.int32, device=q.device)
+        more = (shift, scratch.data_ptr(), need)
+        if route == "counting pass":
+            fn, args = HS.build_window_order(), (idx.data_ptr(), b * k, n)
+
+    def call():
+        if fn(*args, *more, stream) != 0:
+            raise RuntimeError(f"hop {route} entry point failed")
+
+    return ctx.time_ms(call, reps=20)
+
+
 def phase_hop(ctx: Ctx, x1, q1):
     from zvdb_tpu_torch.ops import hop_scores as HS
 
     rng = np.random.default_rng(765)
     dev = ctx.device
     for b, k, d in ((8, 128, 32), (64, 256, 128), (8, 128, 100), (8, 128, 13)):
-        x = torch.from_numpy(rng.standard_normal((5000, d)).astype(np.float32)).to(dev)
-        q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
-        idx = torch.from_numpy(_hop_ids(rng, b, k, 5000, live=k // 2)).to(dev)   # duplicated ids
-        got, want = HS.fused_hop_scores(idx, q, x), HS._hop_scores_plain(idx, q, x)
-        ctx.sync()
-        err = _hop_check(idx, q, x, got, want, f"hop B={b} K={k} D={d}")
-        print(f"  compare hop B={b} K={k} D={d} (duplicated ids): ok, max |kernel - plain| = "
-              f"{err:.3g}", flush=True)
+        for n in (5000, 7):   # 7 rows: every id repeats many times
+            x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+            q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+            idx = torch.from_numpy(_hop_ids(rng, b, k, n, live=k // 2)).to(dev)   # duplicated ids
+            if not ctx.rehearse:   # outside [0, N): NaN, nothing read (the plain version cannot)
+                idx[0, 0], idx[-1, -1] = -1, n
+            ok = idx.clamp(0, n - 1)
+            want = HS._hop_scores_plain(ok, q, x)
+            errs = []
+            for route in HOP_ROUTES:
+                with _hop_route(HS, route):
+                    got = HS.fused_hop_scores(idx, q, x)
+                ctx.sync()
+                if not ctx.rehearse and not (bool(torch.isnan(got[0, 0]))
+                                             and bool(torch.isnan(got[-1, -1]))):
+                    raise AssertionError(f"hop {route} B={b} K={k} N={n} D={d}: an id outside "
+                                         "[0, N) did not score NaN")
+                got[0, 0], got[-1, -1] = want[0, 0], want[-1, -1]
+                errs.append(_hop_check(ok, q, x, got, want,
+                                       f"hop {route} B={b} K={k} N={n} D={d}"))
+            shift = HS.window_shift(n, d, _hop_scratch_ints(ctx, HS))
+            plain = HS._window_order_plain(idx, n, shift)
+            for got, exp in zip(HS.window_order(idx, n, shift), plain):
+                if not torch.equal(got, exp):
+                    raise AssertionError(f"hop window order B={b} K={k} N={n} shift={shift} "
+                                         "differs from its plain version")
+            print(f"  compare hop B={b} K={k} N={n} D={d} (duplicated ids, two outside [0, N)): "
+                  f"direct and grouped ok, max |kernel - plain| = {max(errs):.3g}; window order "
+                  f"(shift {shift}) equal", flush=True)
 
     # two shapes over the corpus: the experiment's own (random ids) and the
     # cagra_1m hop (2048 queries x 96 candidates, padded to 128)
@@ -2422,36 +2504,59 @@ def phase_hop(ctx: Ctx, x1, q1):
         rows = rng.integers(0, q1.shape[0], b)
         inputs[name] = (torch.from_numpy(_hop_ids(rng, b, k, n, live)).to(dev),
                         torch.from_numpy(q1[rows]).to(dev))
+    routes = {name: HS.choose_route(b, k, n) for name, (b, k, _) in shapes.items()}
     ctx.sync()
-    HS.fused_hop_scores.launches = 0
+    HS.fused_hop_scores.launches = HS.fused_hop_scores.launches_grouped = 0
     outs = {name: HS.fused_hop_scores(idx, q, xd) for name, (idx, q) in inputs.items()}
     ctx.sync()
-    launches = HS.fused_hop_scores.launches
-    ctx.report("hop launches", f"{launches} for {len(shapes)} hops")
-    if not ctx.rehearse and launches != len(shapes):
-        raise AssertionError(f"hop kernel launched {launches} times for {len(shapes)} hops")
+    launches, grouped = HS.fused_hop_scores.launches, HS.fused_hop_scores.launches_grouped
+    ctx.report("hop launches (all / grouped route)",
+               f"{launches} / {grouped} for {len(shapes)} hops; routes chosen {routes}")
+    want_grouped = sum(r == "grouped" for r in routes.values())
+    if not ctx.rehearse and (launches, grouped) != (len(shapes), want_grouped):
+        raise AssertionError(f"hop kernel launched {launches} times ({grouped} grouped) for "
+                             f"{len(shapes)} hops ({want_grouped} grouped)")
     res = {}
     for name, (idx, q) in inputs.items():
         b, k = idx.shape
-        err = _hop_check(idx, q, xd, outs[name], HS._hop_scores_plain(idx, q, xd),
-                         f"hop {name}")
-        ms = ctx.time_ms(lambda: HS.fused_hop_scores(idx, q, xd), reps=20)
-        plain_ms = ctx.time_ms(lambda: HS._hop_scores_plain(idx, q, xd), reps=10)
-        gather_ms = ctx.time_ms(lambda: xd[idx.long()].sum(dim=(1, 2)), reps=10)
+        want = HS._hop_scores_plain(idx, q, xd)
+        err = _hop_check(idx, q, xd, outs[name], want, f"hop {name}")
         # the least bytes: each distinct row once, then ids, q and the output
         rows_read = int(torch.unique(idx).numel())
         nbytes = rows_read * d * 4 + b * k * 4 + b * d * 4 + b * k * 4
         bound_ms = nbytes / HBM_BYTES_S * 1e3
         shape = f"B={b} K={k} N={n} D={d}"
-        ctx.report(f"hop {name} ({shape}) distinct rows", f"{rows_read} of {b * k} ids")
-        ctx.report(f"hop {name} ({shape}) kernel ms", ms)
-        ctx.report(f"hop {name} achieved GB/s (the bound's bytes / kernel time)",
-                   nbytes / (ms * 1e-3) / 1e9)
+        ctx.report(f"hop {name} ({shape}) distinct rows", f"{rows_read} of {b * k} ids "
+                   f"(expected repeat share {HS.repeat_share(b, k, n):.3f})")
+        ctx.report(f"hop {name} bound ms (distinct rows, ids, q, output / 3.35 TB/s)", bound_ms)
+        ms = {}
+        for route in HOP_ROUTES:
+            with _hop_route(HS, route):
+                err = max(err, _hop_check(idx, q, xd, HS.fused_hop_scores(idx, q, xd), want,
+                                          f"hop {name} {route}"))
+                ms[route] = ctx.time_ms(lambda: HS.fused_hop_scores(idx, q, xd), reps=20)
+            entry = _hop_entry_ms(ctx, HS, route, idx, q, xd)
+            ctx.report(f"hop {name} {route} route ms, share of the bound; its entry point alone "
+                       "(no Python wrapper)",
+                       f"{ms[route]:.4f}, {bound_ms / ms[route]:.1%}; " + (
+                           "not measured (rehearsal)" if entry is None else
+                           f"{entry:.4f}, {bound_ms / entry:.1%}"))
+        entry = _hop_entry_ms(ctx, HS, "counting pass", idx, q, xd)
+        ctx.report(f"hop {name} counting pass alone ms (its entry point, shift "
+                   f"{HS.window_shift(n, d, _hop_scratch_ints(ctx, HS))})",
+                   "not measured (rehearsal)" if entry is None else entry)
+        ms_now = ms[routes[name]]
+        ctx.report(f"hop {name} shipped route ({routes[name]}) ms, share of the bound; before "
+                   "the redesign (PERF.md)",
+                   f"{ms_now:.4f}, {bound_ms / ms_now:.1%}; {OLD_G_MS[name]}")
+        ctx.report(f"hop {name} achieved GB/s (the bound's bytes / shipped route's time)",
+                   nbytes / (ms_now * 1e-3) / 1e9)
+        plain_ms = ctx.time_ms(lambda: HS._hop_scores_plain(idx, q, xd), reps=10)
+        gather_ms = ctx.time_ms(lambda: xd[idx.long()].sum(dim=(1, 2)), reps=10)
         ctx.report(f"hop {name} plain ms (gather + einsum, the yardstick)", plain_ms)
         ctx.report(f"hop {name} gather alone ms (x[idx].sum)", gather_ms)
-        ctx.report(f"hop {name} bound ms (distinct rows, ids, q, output / 3.35 TB/s)", bound_ms)
         ctx.report(f"hop {name} max |kernel - plain|", err)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms,
+        res[name] = dict(ms=ms_now, plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms,
                          bound_by="bytes", max_abs_err=err, launches=launches)
     del xd
     return res

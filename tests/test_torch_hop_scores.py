@@ -6,7 +6,8 @@ On the CPU `fused_hop_scores` runs `_hop_scores_plain`; the JAX side runs the
 example kernel in interpret mode, loaded by path. Tolerance: atol 1e-5, the
 f32 dot summing in another order (the scores are O(1)-O(10)).
 
-The `gpu`-marked test needs the card and skips without one:
+The `gpu`-marked tests need the card and skip without one; they force a
+route by swapping out `choose_route`:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_hop_scores.py
 """
 import importlib.util
@@ -100,3 +101,130 @@ def test_kernel_matches_plain_on_gpu(cuda_device, b, k, d):
     out = HS.fused_hop_scores(bad, q, x)
     assert bool(torch.isnan(out[0, 0])) and bool(torch.isnan(out[-1, -1]))
     assert torch.equal(out[0, 1:], got[0, 1:])
+
+
+def _window_cases():
+    # (B, K, N, shift, out-of-range ids): windows of one row, ragged last
+    # windows, a corpus far smaller than the list, and ids outside [0, N)
+    return [(8, 128, 5000, 4, False), (16, 256, 5000, 9, True), (8, 128, 7, 0, True),
+            (24, 128, 100_000, 14, True), (8, 128, 1, 0, False)]
+
+
+@pytest.mark.parametrize("b,k,n,shift,bad", _window_cases())
+def test_window_order_plain_against_numpy(b, k, n, shift, bad):
+    rng = np.random.default_rng(b + k + n + shift)
+    idx = rng.integers(0, n, (b, k)).astype(np.int32)
+    idx[:, 1::3] = idx[:, ::3][:, :idx[:, 1::3].shape[1]]   # repeated ids
+    if bad:
+        idx[0, 0], idx[-1, 5], idx[3, -1] = -1, n, -(2**31)
+    pos, ids, counts = HS._window_order_plain(torch.from_numpy(idx), n, shift)
+    pos, ids, counts = pos.numpy(), ids.numpy(), counts.numpy()
+    flat = idx.reshape(-1)
+    windows = (n + (1 << shift) - 1) >> shift
+    w = np.where((flat >= 0) & (flat < n), flat.astype(np.int64) >> shift, windows)
+    assert pos.dtype == np.int32 and ids.dtype == np.int32
+    assert np.array_equal(np.sort(pos), np.arange(b * k))             # every position once
+    assert np.array_equal(ids, flat[pos])
+    assert np.all(np.diff(w[pos]) >= 0)                                # windows in order
+    same = np.diff(w[pos]) == 0
+    assert np.all(np.diff(pos)[same] > 0)                              # (b, j) order within one
+    assert np.array_equal(counts, np.bincount(w, minlength=windows + 1))
+
+
+@pytest.mark.parametrize("b,k,n,want", [(4992, 256, 1_000_000, "grouped"),
+                                        (2048, 128, 1_000_000, "direct"),
+                                        (64, 256, 5000, "grouped"), (8, 128, 5000, "direct"),
+                                        (8, 128, 0, "direct")])
+def test_route_depends_only_on_b_k_n(b, k, n, want):
+    assert HS.choose_route(b, k, n) == want
+    share = HS.repeat_share(b, k, n)
+    assert 0.0 <= share < 1.0
+    if n:   # the share is the expected one of b * k uniform draws from n rows
+        draws = np.random.default_rng(0).integers(0, n, b * k)
+        assert abs(share - (1 - np.unique(draws).size / draws.size)) < 0.01
+    # nothing but the three ints: the same answer for any ids, widths or devices
+    idx, q, x = (torch.from_numpy(a) for a in _inputs(8, 128, 300, 20, seed=3))
+    before = (HS.fused_hop_scores.launches, HS.fused_hop_scores.launches_grouped)
+    HS.fused_hop_scores(idx, q, x)
+    assert HS.choose_route(b, k, n) == want
+    assert (HS.fused_hop_scores.launches, HS.fused_hop_scores.launches_grouped) == before
+
+
+def _scratch_ints_model(cap):
+    """The kernel's zvdb_hop_scratch_ints as far as window_shift reads it:
+    -1 past `cap` windows or outside shift [0, 30], else >= 0."""
+    def scratch_ints(p, n, shift):
+        ok = 0 <= shift <= 30 and (n + (1 << shift) - 1) >> shift <= cap
+        return 2 * p + 1 if ok else -1
+    return scratch_ints
+
+
+@pytest.mark.parametrize("n,d", [(1_000_000, 128), (5000, 13), (10**9, 128), (1, 1),
+                                 (2**31 - 1, 4)])
+def test_window_shift_fits_the_counting_pass(n, d):
+    for cap in (511, 40, 2):   # the kernel's cap, whatever it is, sets the shift
+        shift = HS.window_shift(n, d, _scratch_ints_model(cap))
+        windows = (n + (1 << shift) - 1) >> shift
+        assert 0 <= shift <= 30 and windows <= cap
+        # the window stays within WINDOW_BYTES unless the window count forces it up,
+        # and then it is the smallest the count allows
+        if (1 << shift) * d * 4 > HS.WINDOW_BYTES:
+            assert (n + (1 << (shift - 1)) - 1) >> (shift - 1) > cap
+    with pytest.raises(ValueError):
+        HS.window_shift(n, d, lambda p, n, shift: -1)
+
+
+@pytest.mark.parametrize("route", ["direct", "grouped"])
+def test_cpu_is_plain_whatever_the_route(monkeypatch, route):
+    idx, q, x = (torch.from_numpy(a) for a in _inputs(8, 128, 300, 20, seed=4, dup=True))
+    want = HS._hop_scores_plain(idx, q, x)
+    monkeypatch.setattr(HS, "choose_route", lambda b, k, n: route)
+    before = (HS.fused_hop_scores.launches, HS.fused_hop_scores.launches_grouped)
+    assert torch.equal(HS.fused_hop_scores(idx, q, x), want)
+    assert (HS.fused_hop_scores.launches, HS.fused_hop_scores.launches_grouped) == before
+    pos, ids, counts = HS.window_order(idx, 300, 5)   # the plain pass on CPU tensors
+    assert int(counts.sum()) == idx.numel() and torch.equal(ids, idx.reshape(-1)[pos.long()])
+
+
+def _gpu_inputs(dev, b, k, n, d, seed):
+    idx, q, x = (torch.from_numpy(a).to(dev) for a in _inputs(b, k, n, d, seed=seed, dup=True))
+    idx[0, 0], idx[-1, -1] = -1, n   # outside [0, N): NaN, nothing read
+    return idx, q, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["direct", "grouped"])
+@pytest.mark.parametrize("n", [5000, 7])   # 7 rows: every id repeats many times
+@pytest.mark.parametrize("b,k,d", [(8, 128, 32), (64, 256, 128), (8, 128, 100), (8, 128, 13)])
+def test_each_route_matches_plain_on_gpu(monkeypatch, cuda_device, route, n, b, k, d):
+    idx, q, x = _gpu_inputs(cuda_device, b, k, n, d, seed=d + n)
+    monkeypatch.setattr(HS, "choose_route", lambda b, k, n: route)
+    before = (HS.fused_hop_scores.launches, HS.fused_hop_scores.launches_grouped)
+    got = HS.fused_hop_scores(idx, q, x)
+    torch.cuda.synchronize()
+    assert (HS.fused_hop_scores.launches, HS.fused_hop_scores.launches_grouped) == (
+        before[0] + 1, before[1] + (route == "grouped"))
+    assert bool(torch.isnan(got[0, 0])) and bool(torch.isnan(got[-1, -1]))
+    ok = idx.clamp(0, n - 1)
+    want = HS._hop_scores_plain(ok, q, x)
+    got[0, 0], got[-1, -1] = want[0, 0], want[-1, -1]
+    scale = q.norm(dim=1)[:, None] * x.norm(dim=1)[ok.long()]
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,n,shift,bad", _window_cases())
+def test_window_order_kernel_matches_plain_on_gpu(cuda_device, b, k, n, shift, bad):
+    idx, _, _ = _gpu_inputs(cuda_device, b, k, n, 4, seed=shift)
+    if not bad:
+        idx = idx.clamp(0, n - 1)
+    before = HS.window_order.launches
+    got = HS.window_order(idx, n, shift)
+    want = HS._window_order_plain(idx, n, shift)
+    assert HS.window_order.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the wrapper's window size is one the kernel takes, at most 511 windows
+    scratch_ints = HS.build_grouped().scratch_ints
+    shift = HS.window_shift(n, 4, scratch_ints)
+    assert scratch_ints(b * k, n, shift) >= 0 and (n + (1 << shift) - 1) >> shift <= 511
