@@ -13,9 +13,14 @@ after every section (the last complete line is the result; the line's keys
 are bench.py's). Rows that run a hand-written kernel check its launch count
 on the card: flat_1m_pallas kernel A, pq_1m kernel B (both on the tensor
 cores), ivfpq_1m the pair scan (kernel C's successor, ops/pq_scan.py:
-pq_grouped_scan_pairs). Every other row launches none: the graph rows
-keep bench.py's block_topk="approx", which the port selects exactly without
-kernel D.
+pq_grouped_scan_pairs). Where bench.py's row reaches lax.approx_min_k, the
+port's row launches ops/approx_topk.py:approx_min_k under JAX's guards,
+counted as "approx": flat and flat_1m once per corpus tile and search call;
+cagra and cagra_1m once per block chunk of every build (bench.py's
+block_topk="approx") and once per search call (the seed anchors); hnsw once
+per block chunk of every build's base layer; ivf once per search call whose
+probes or pair-scan cut pass the guard. Kernel D does not run on the graph
+rows (block_topk is not "pallas").
 
 Builds are timed warm where bench.py's are (a first build pays each op's
 first use; kernels are built once per process before the first row), best
@@ -47,6 +52,8 @@ from zvdb_tpu_torch import (HNSW, CagraConfig, CagraIndex, FlatConfig, FlatIndex
 from zvdb_tpu_torch.bench.harness import (_block_until_ready, _sync, ground_truth_host,
                                           recall_at_k)
 from zvdb_tpu_torch.io.datasets import load_dataset, synthetic_clustered
+from zvdb_tpu_torch.index.ivf import use_pair_scan
+from zvdb_tpu_torch.ops import approx_topk as AK
 from zvdb_tpu_torch.ops import block_scan as BS
 from zvdb_tpu_torch.ops import flat_scan as FS
 from zvdb_tpu_torch.ops import pq_scan as PS
@@ -188,8 +195,9 @@ def search_calls(nq, batch, reps):
     return math.ceil(nq / batch) * (1 + 2 * reps)
 
 
-def timed_builds(factory, build, n, device):
-    """Two builds of a fresh index, each timed to a device sync.
+def timed_builds(factory, build, n, device, on_built=None):
+    """Two builds of a fresh index, each timed to a device sync; on_built,
+    if given, is called with each built index (after its timing).
     Returns (best seconds, [points/s of each], the last index)."""
     best, runs, idx = float("inf"), [], None
     for _ in range(2):
@@ -200,16 +208,54 @@ def timed_builds(factory, build, n, device):
         dt = time.perf_counter() - t0
         runs.append(round(n / dt, 1))
         best = min(best, dt)
+        if on_built is not None:
+            on_built(idx)
     return best, runs, idx
 
 
 def kernel_counts():
     """Launch counters of the kernels a bench row can reach (A, B, C and the
-    pair scan, D)."""
+    pair scan, D, approx_min_k)."""
     return {"A": FS.flat_scan_bins.launches, "A_mma": FS.flat_scan_bins.launches_mma,
             "B": PS.pq_scan_bins.launches, "B_mma": PS.pq_scan_bins.launches_mma,
             "C": PS.pq_grouped_scan_bins.launches,
-            "C_pairs": PS.pq_grouped_scan_pairs.launches, "D": BS.block_bins.launches}
+            "C_pairs": PS.pq_grouped_scan_pairs.launches, "D": BS.block_bins.launches,
+            "approx": AK.approx_min_k.launches}
+
+
+def flat_tiles(n, tile_n):
+    """Corpus tiles of a flat scan over n rows: approx_min_k launches per
+    search call of the flat engine's approximate tiled path."""
+    return -(-n // min(tile_n, n))
+
+
+def graph_build_launches(idx):
+    """approx_min_k launches of one graph build (CAGRA, or HNSW's one-shot
+    base layer) from its build_stats: one per chunk of cc blocks, when
+    block_topk is "approx" and the blocks pass JAX's bcap >= 4 * kk."""
+    st = idx.build_stats
+    if idx.cfg.block_topk != "approx" or "c_blocks" not in st:   # no cluster-kNN build
+        return 0
+    if st["bcap"] < 4 * min(st["kc"], st["bcap"]):
+        return 0
+    return sum(-(-cb // st["cc"]) for cb in st["c_blocks"])
+
+
+def cagra_seed_launches(idx):
+    """approx_min_k launches of one CAGRA search call: the seed anchors,
+    when seed_approx and anchors > 4 * n_seeds."""
+    a = idx.state.anchors.shape[0]
+    return int(idx.cfg.seed_approx and a > 4 * min(idx.cfg.n_seeds, a))
+
+
+def ivf_search_launches(idx, b, nprobe, k, rerank=0):
+    """approx_min_k launches of one unfiltered IVF-Flat search call of b
+    queries: the probes when C >= 4096 and 4 * nprobe <= C, the pair scan's
+    cut when it takes the pair scan and cap >= 4 * kk."""
+    c, cap = idx.state.blocks.shape[:2]
+    p = min(nprobe, c)
+    kk = min(k * rerank if rerank else k, cap)
+    return int(c >= 4096 and 4 * p <= c) + int(use_pair_scan(c, b, p) and cap >= 4 * kk)
 
 
 def check_launches(row, device, before, expect):
@@ -234,8 +280,9 @@ def to_device(x, device):
 # ---- the 100k rows -----------------------------------------------------------
 
 def row_flat(x, q, gt, k, metric="l2", device="cuda"):
-    """Exact tiled scan at precision "high" (bf16x3). The port's approx=True
-    selects exactly, so recall_target is unused; no kernel."""
+    """TPU-KNN brute force: the tiled scan at precision "high" (bf16x3),
+    each tile's candidates selected by approx_min_k at recall_target 0.97
+    (on the card its kernel, once per tile and search call)."""
     n, d = x.shape
     flat_cfg = FlatConfig(dim=d, metric=metric, precision="high",
                           recall_target=0.97, tile_n=131072)
@@ -247,7 +294,8 @@ def row_flat(x, q, gt, k, metric="l2", device="cuda"):
     fn = lambda qq: flat.search(qq, k, approx=True)
     flat_recall = recall_at_k(search_ids(fn, q, batch), gt, k)
     flat_qps, flat_qps_runs = timed_qps(fn, q, batch, device=device)
-    check_launches("flat", device, before, {})
+    check_launches("flat", device, before,
+                   {"approx": search_calls(q.shape[0], batch, 6) * flat_tiles(n, 131072)})
     log(f"flat: recall={flat_recall:.4f} qps={flat_qps:,.0f} build={n/flat_build_s:,.0f} pts/s")
     return dict(recall=flat_recall, qps=flat_qps, qps_runs=flat_qps_runs,
                 build_pps=n / flat_build_s, build_runs_pps=flat_build_runs)
@@ -255,7 +303,8 @@ def row_flat(x, q, gt, k, metric="l2", device="cuda"):
 
 def row_ivf(x, q, gt, k, metric="l2", device="cuda"):
     """IVF-Flat: builds from the host corpus and from device rows, the
-    nprobe sweep {2, 4, 8} to the recall target; no kernel."""
+    nprobe sweep {2, 4, 8} to the recall target; approx_min_k where the
+    probes or the pair scan's cut pass JAX's guards."""
     n, d = x.shape
     batch = q.shape[0]
     ivf_cfg = IVFConfig(dim=d, n_clusters=1024, nprobe=8, metric=metric,
@@ -275,8 +324,9 @@ def row_ivf(x, q, gt, k, metric="l2", device="cuda"):
     ivf_build_dev_s, ivf_dev_runs, _ = timed_builds(
         lambda: IVFIndex(ivf_cfg, device=device), lambda i: i.build(xd), n, device)
     del xd
-    best_ivf = None
+    best_ivf, calls = None, 0
     for npb in (2, 4, 8):
+        calls += ivf_search_launches(ivf, batch, npb, k)
         r = recall_at_k(search_ids(lambda qq: ivf.search(qq, k, nprobe=npb), q, batch), gt, k)
         log(f"ivf nprobe={npb} recall={r:.4f}")
         if r >= TARGET_RECALL:
@@ -287,7 +337,8 @@ def row_ivf(x, q, gt, k, metric="l2", device="cuda"):
     npb, ivf_recall = best_ivf
     ivf_qps, ivf_qps_runs = timed_qps(
         lambda qq: ivf.search(qq, k, nprobe=npb), q, batch, device=device)
-    check_launches("ivf", device, before, {})
+    calls += 2 * 6 * ivf_search_launches(ivf, batch, npb, k)
+    check_launches("ivf", device, before, {"approx": calls})
     log(f"ivf: recall={ivf_recall:.4f} qps={ivf_qps:,.0f} "
         f"build={n/ivf_build_dev_s:,.0f} pts/s device-resident "
         f"(host-corpus {n/ivf_build_s:,.0f}) (nprobe={npb})")
@@ -300,19 +351,25 @@ def row_ivf(x, q, gt, k, metric="l2", device="cuda"):
 def _graph_row(name, factory, efs, ef_fallback, reps, x, q, gt, k, device):
     """The cagra and hnsw rows: a warm build, two host-corpus and two
     device-row builds, the ef sweep on the first 2048 queries, QPS in
-    batches of 5000."""
+    batches of 5000. approx_min_k runs in each build's block cut and, for
+    CAGRA, in each search call's seeds."""
     n = x.shape[0]
     before = kernel_counts()
+    builds = []                        # approx_min_k launches of each build
+    tally = lambda i: builds.append(graph_build_launches(i))
     warm = factory()
     warm.build(x)                      # first use of every op
     _sync(device)
+    tally(warm)
     del warm
-    host_s, host_runs, idx = timed_builds(factory, lambda i: i.build(x), n, device)
+    host_s, host_runs, idx = timed_builds(factory, lambda i: i.build(x), n, device, tally)
     xd = to_device(x, device)
-    dev_s, dev_runs, _ = timed_builds(factory, lambda i: i.build(xd), n, device)
+    dev_s, dev_runs, _ = timed_builds(factory, lambda i: i.build(xd), n, device, tally)
     del xd
-    best_ef = None
+    seeds = cagra_seed_launches(idx) if isinstance(idx, CagraIndex) else 0
+    best_ef, calls = None, 0
     for ef in efs:
+        calls += 1
         r = recall_at_k(idx.search(q[:2048], k, ef_search=ef)[1].cpu().numpy(), gt[:2048], k)
         log(f"{name} ef={ef} recall={r:.4f}")
         if r >= TARGET_RECALL:
@@ -322,8 +379,10 @@ def _graph_row(name, factory, efs, ef_fallback, reps, x, q, gt, k, device):
         best_ef, recall = ef_fallback, r
     qps, qps_runs = timed_qps(lambda qq: idx.search(qq, k, ef_search=best_ef), q, 5000,
                               reps=reps, device=device)
-    check_launches(name, device, before, {})
-    log(f"{name}: kernel D did not run (block_topk='approx', the port's exact block top-k)")
+    calls += 2 * reps * -(-q.shape[0] // 5000)
+    check_launches(name, device, before, {"approx": sum(builds) + seeds * calls})
+    log(f"{name}: approx_min_k per build {builds}, per search call {seeds} "
+        "(block_topk='approx'; kernel D did not run)")
     log(f"{name}: recall={recall:.4f} qps={qps:,.0f} "
         f"build={n/dev_s:,.0f} pts/s device-resident "
         f"(host-corpus {n/host_s:,.0f}) (ef={best_ef})")
@@ -422,22 +481,29 @@ def row_cagra_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
             search_degree=24, max_iters=4, ef_search=12), device=device)
 
     before = kernel_counts()
+    builds = []                        # approx_min_k launches of each build
     cg1 = cg1_factory()                # first use of every op
     cg1.build(x1)
     _sync(device)
+    builds.append(graph_build_launches(cg1))
     t0 = time.perf_counter()           # warm host-corpus rebuild
     cg1 = cg1_factory()
     cg1.build(x1)
     _sync(device)
     cb1 = time.perf_counter() - t0
+    builds.append(graph_build_launches(cg1))
     xd1 = to_device(x1, device)
-    cb1_dev, cg1_dev_runs, _ = timed_builds(cg1_factory, lambda i: i.build(xd1), n1, device)
+    cb1_dev, cg1_dev_runs, _ = timed_builds(
+        cg1_factory, lambda i: i.build(xd1), n1, device,
+        lambda i: builds.append(graph_build_launches(i)))
     del xd1
     fn = lambda qq: cg1.search(qq, k, ef_search=12)
     rg = recall_at_k(search_ids(fn, q1, 5000), gt1, k)
     qpsg, qpsg_runs = timed_qps(fn, q1, 5000, reps=3, device=device)
-    check_launches("cagra_1m", device, before, {})
-    log("cagra_1m: kernel D did not run (block_topk='approx', the port's exact block top-k)")
+    seeds = cagra_seed_launches(cg1) * search_calls(q1.shape[0], 5000, 3)
+    check_launches("cagra_1m", device, before, {"approx": sum(builds) + seeds})
+    log(f"cagra_1m: approx_min_k per build {builds}, {seeds} in search (the seed anchors; "
+        "block_topk='approx', kernel D did not run)")
     if cuda:
         log(f"cagra_1m peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
             "(max_memory_allocated, builds + search)")
@@ -449,8 +515,10 @@ def row_cagra_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
 
 
 def row_flat_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
-    """Two-pass flat: a bf16 tiled scan keeping rerank*k candidates, then an
-    exact f32 rerank; no kernel."""
+    """Two-pass flat: a bf16 tiled scan keeping rerank*k candidates, each
+    tile's selected by approx_min_k at recall_target 0.97 (on the card its
+    kernel, once per 500,000-row tile and search call), then an exact f32
+    rerank."""
     n1, d = x1.shape
     fl1_cfg = FlatConfig(dim=d, metric=metric, rerank=4,
                          recall_target=0.97, tile_n=500_000)
@@ -460,7 +528,8 @@ def row_flat_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
     fn = lambda qq: fl1.search(qq, k, approx=True)
     r1 = recall_at_k(search_ids(fn, q1, 2048), gt1, k)
     qps1, qps1_runs = timed_qps(fn, q1, 2048, device=device)
-    check_launches("flat_1m", device, before, {})
+    check_launches("flat_1m", device, before,
+                   {"approx": search_calls(q1.shape[0], 2048, 6) * flat_tiles(n1, 500_000)})
     log(f"flat 1M: recall={r1:.4f} qps={qps1:,.0f} build={n1/b1:,.0f} pts/s")
     return dict(recall=r1, qps=qps1, qps_runs=qps1_runs, build_pps=n1 / b1,
                 build_runs_pps=fl1_runs)
@@ -578,13 +647,14 @@ def _try_row(results, failed, name, fn):
 
 
 def _prebuild_kernels():
-    """Build the three kernel sources the rows launch, one nvcc each, together."""
+    """Build the four kernel sources the rows launch, one nvcc each, together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(fn) for fn in (FS.build_mma, PS.build_mma, PS.build_pairs)]:
+    with ThreadPoolExecutor(4) as pool:
+        for fut in [pool.submit(fn) for fn in (FS.build_mma, PS.build_mma, PS.build_pairs,
+                                               AK.build)]:
             fut.result()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        "(flat_scan_mma.cu, pq_scan_mma.cu, pq_scan.cu)")
+        "(flat_scan_mma.cu, pq_scan_mma.cu, pq_scan.cu, approx_topk.cu)")
 
 
 def run(device, n, nq, n1, k=10, scale_n=0, scale_engines=("pq",), cache_dir=CACHE_DIR):

@@ -6,16 +6,17 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device     - the card's name, count and power limit (nvidia-smi);
-  2. build      - nvcc builds the eight sources under zvdb_tpu_torch/csrc/
+  2. build      - nvcc builds the nine sources under zvdb_tpu_torch/csrc/
                   for sm_90a, all at once: flat_scan_mma.cu (kernel A
                   "default"/"high" on the tensor cores), flat_scan.cu (A's
                   and D's "highest" on the CUDA cores), pq_scan.cu (B's
                   CUDA-core route and C), pq_scan_mma.cu (B int8 on the
                   tensor cores), scan_topk_mma.cu (E and F, their
                   tensor-core filters and exact re-scoring), scan_topk.cu
-                  (the CUDA-core E and F), hop_scores.cu (G) and
-                  block_bins.cu (D on the tensor cores), each with its ptxas
-                  registers and spills;
+                  (the CUDA-core E and F), hop_scores.cu (G), block_bins.cu
+                  (D on the tensor cores) and approx_topk.cu
+                  (lax.approx_min_k), each with its ptxas registers and
+                  spills;
   3. compare    - each kernel against its plain PyTorch version: flat_scan
                   over a grid of shapes, every precision and metric, f32
                   and bf16 storage, tie-aware ("default" and "high" on the
@@ -107,8 +108,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   build against ceil(c_blocks/cc) summed over the passes,
                   all of them on the tensor cores, a traced build's
                   stages) and searched in batches of 2048
-                  (recall@10 >= 0.95, no kernel launched by search, an ef
-                  sweep); kernel D on the build's own first chunk against
+                  (recall@10 >= 0.95, approx_min_k once a batch for the
+                  seed anchors and no other kernel, an ef sweep); kernel D
+                  on the build's own first chunk against
                   its plain version in every precision;
  15. cagra server - a SearchServer over the CAGRA index, as in phase 5
                   (answers may differ from the batched search on near-ties
@@ -215,17 +217,20 @@ Phases, in order; any failure raises and the script exits non-zero:
  26. ivf carry  - a 4,000-row IVF index built on the CPU and carried by
                   from_numpy onto the card and onto the CPU: ids equal from
                   both, f32 blocks and int8 + rerank, at B=8 (the pair scan)
-                  and B=512 (the grouped scan); the IVF path runs no kernel,
-                  so this is its device check;
+                  and B=512 (the grouped scan); the pair scan's cut runs
+                  approx_min_k on the card where cap >= 4 kk, and the CPU
+                  side then selects with its plain version;
  27. ivf main   - the ivf_1m configuration (the bench.py ivf row at 1M:
                   IVFConfig(dim=128, n_clusters=1024, nprobe=8,
                   kmeans_iters=4, kmeans_sample=65536), f32 blocks): builds
                   from host and from device rows (points/s, 2 runs each
                   after a warm-up, then one traced each), the nprobe sweep
                   {2, 4, 8} (recall@10, the scan taken, QPS, peak device
-                  memory; the first with recall >= 0.95 is kept; no kernel
-                  launched), the pair and grouped scans held together on
-                  the same probes at each nprobe (the share q_cap drops), a
+                  memory; the first with recall >= 0.95 is kept;
+                  approx_min_k once a pair-scan call whose cap >= 4 kk, no
+                  other kernel), the pair (its cut taken exactly) and
+                  grouped scans held together on the same probes at each
+                  nprobe (the share q_cap drops), a
                   torch.profiler breakdown, a server, filtered search (1%
                   and 50% allowlists, scan and probe modes) and search_range
                   against the flat oracle, and 1% of the rows added to an
@@ -233,9 +238,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   recall, self-hit@1 >= 0.95);
  28. ivf int8   - the ivf_1m_int8 configuration (IVFConfig(dim=128,
                   dtype="int8", rerank=4, kmeans_iters=6), clusters by the
-                  default rule): build, the nprobe sweep {4, 8, 16}, both
-                  scans held together, a profile, 1% removed (none comes
-                  back) and compact, timed;
+                  default rule): build, the nprobe sweep {4, 8, 16}
+                  (approx_min_k for the probes, C >= 4096, and the pair
+                  scan's cut, counted), both scans held together, a
+                  profile, 1% removed (none comes back) and compact, timed;
  29. ivf checkpoint + sweep - at 100k rows, the int8 + rerank build direct,
                   with its plan checkpoint and resumed (every field equal)
                   and a save/load round trip (ids equal; files under build/
@@ -245,13 +251,19 @@ Phases, in order; any failure raises and the script exits non-zero:
  30. sharded flat - sharded_flat_1m: ShardedFlat(FlatConfig(dim=128,
                   precision="highest")) over 4 shards placed on the one card
                   (make_mesh cycles the devices), built from host rows
-                  (seconds, live_buffer_bytes after the build): ids equal to
-                  the single-chip exact FlatIndex's up to ties over every
-                  query, QPS, each shard's and the merge's ms a batch (synced
-                  utils/profiling phases), then 1% removed and a 10%
-                  allowlist against the oracle with the same tombstones, and
-                  search_range counts bracketed by the oracle's, a
-                  torch.profiler breakdown of a batch; no kernel launched;
+                  (seconds, live_buffer_bytes after the build): approx=False
+                  ids equal to the single-chip exact FlatIndex's up to ties
+                  over every query; approx=True (the default: approx_min_k
+                  a shard, 4 launches a batch) against its own run with
+                  the kernel's plain version (scores, ids up to ties),
+                  each id's f64 distance against its score, and recall@10
+                  against approx=False at the bins' bar; QPS and each
+                  shard's and the merge's ms a batch (synced utils/profiling
+                  phases) for both, in turns, torch.profiler breakdowns of
+                  both; then 1% removed and a 10% allowlist against the
+                  oracle with the same tombstones (approx=False; approx=True
+                  held as above), and search_range counts bracketed by the
+                  oracle's; no other kernel launched;
  31. sharded hnsw - sharded_hnsw_1m: hnsw_1m's HNSWConfig(dim=128, m=16,
                   ef_construction=100, build_batch=8192) over 4 shards on
                   the card, built by the batched step (points/s beside
@@ -300,7 +312,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                   (ids equal; files under build/ and deleted), each file
                   loaded onto CPU devices too (the plain kernels: ids equal
                   to the card's up to ties), and ShardedIVFPQ == the
-                  single-chip IVFPQIndex on an exhaustive pool on the card;
+                  single-chip IVFPQIndex on an exhaustive pool on the card
+                  (the single chip's filtered scan selecting exactly);
  36. sharded ivf - sharded_ivf_1m: ivf_1m's IVFConfig over 4 shards (one
                   single-chip build, then the clusters placed largest first
                   on the least-loaded shard), the build timed whole and in
@@ -308,14 +321,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                   the local probes, the scan each shard takes (pair or
                   grouped) and the probe pairs the grouped scan's q_cap
                   drops, per-shard and merge ms; one traced batch (the idle
-                  share); no kernel launched; recall@10 >= 0.95 and >=
+                  share); no kernel launched (every shard takes the grouped
+                  scan, C_loc < 4096); recall@10 >= 0.95 and >=
                   phase 27's minus 0.005 at nprobe 8; a 1% allowlist in
                   "scan" (against the exact filtered truth up to ties) and
                   "probe"; remove 1% (none comes back) and compact, timed;
                   1,000 and 10,000 rows added to builds over 99% (rows/s,
                   the path taken, the host routing's seconds, self-hit@1 >=
                   0.95); then sharded_ivf_1m_int8 (phase 28's config) at
-                  nprobe 4: recall@10 >= 0.95, QPS, the probe filter;
+                  nprobe 4: recall@10 >= 0.95, QPS, the probe filter,
+                  approx_min_k once a shard a call (the pair scan's cut);
  37. sharded cagra - sharded_cagra_1m: cagra_1m's CagraConfig over 4 x
                   250,000 rows, the shards' graphs built together by
                   build_knn_graph_multi (seconds, points/s beside phase
@@ -324,7 +339,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                   cores), D on shard 0's own first chunk against its plain
                   version in every precision; searched in batches of 2048
                   (recall@10 >= 0.95 beside phase 14's, QPS, per-shard and
-                  merge ms, a traced batch, no kernel launched); 1% removed
+                  merge ms, a traced batch, approx_min_k once a shard a
+                  call for the seed anchors, no other kernel); 1% removed
                   (none comes back), a 10% allowlist in "scan" (against the
                   exact FlatIndex with the same tombstones, up to ties) and
                   "beam"; the last 1% inserted in requests of 100 into a
@@ -333,17 +349,38 @@ Phases, in order; any failure raises and the script exits non-zero:
  38. sharded ivf/cagra persist - both engines at 100k: save/load round
                   trips (files under build/ and deleted), each file loaded
                   onto CPU devices too (ids equal to the card's up to
-                  ties), ShardedIVF == the single-chip IVFIndex on an
-                  exhaustive pool, and build_knn_graph_multi ==
+                  ties; the CPU's approx_min_k sites take its plain
+                  version), ShardedIVF == the single-chip IVFIndex on an
+                  exhaustive pool (the single chip's filtered scan selecting
+                  exactly, as the sharded masked scan does), and
+                  build_knn_graph_multi ==
                   build_knn_graph shard by shard (nbrs equal), on the card;
  39. bench_cuda - bench_cuda.py's rows (bench.py's nine: flat, pq_1m,
                   ivfpq_1m, cagra_1m, ivf, cagra, hnsw, flat_1m,
                   flat_1m_pallas) at ZVDB_BENCH_SMOKE sizes (20k and 60k rows
                   at 128d, 2,000 queries) through its `run`: exit code 0,
                   every row with bench.py's keys in the last emitted line,
-                  recall@10 >= 0.99 on the flat rows, and kernels A and B
-                  (launches_mma) and the pair scan (launches) risen by their
-                  rows' search calls, C, D, E and F not at all.
+                  recall@10 >= 0.99 on flat_1m and flat_1m_pallas and, on
+                  flat, approx_min_k's expected selection recall less 4
+                  standard errors; kernels A and B (launches_mma) and the
+                  pair scan (launches) risen by their rows' search calls,
+                  approx_min_k by what each row checked, C, D, E and F not
+                  at all;
+ 40. approx     - approx_min_k (ops/approx_topk.py, csrc/approx_topk.cu)
+                  against its plain version, positions and value bits
+                  equal, over a grid (ties, +-0.0, +inf rows, N <= 128,
+                  k = L = N, rank 3, rows whose windows split over blocks,
+                  L up to 11,776) and at eight sites' operands at full size,
+                  each timed beside torch.topk and smallest_k_dense with its
+                  byte bound; bench.py's flat row (100k x 128d, 10,000
+                  queries in one batch) as the main path: one launch,
+                  recall@10 against the exact f32 search, QPS with the
+                  kernel and with exact selection in turns, a profile, the
+                  kernel on the batch's own tile; the flat_1m row the same
+                  way; then each site's launches where JAX's guard holds
+                  and none where it fails (flat tiles and two-pass,
+                  ShardedFlat, the PQ and sharded PQ decode scans, IVF's
+                  probes and pair cut, CAGRA's block cut and seeds).
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -352,11 +389,13 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -433,6 +472,7 @@ def phase_device(ctx: Ctx):
 
 
 def phase_build(ctx: Ctx):
+    from zvdb_tpu_torch.ops import approx_topk as AK
     from zvdb_tpu_torch.ops import block_scan as BS
     from zvdb_tpu_torch.ops import flat_scan as FS
     from zvdb_tpu_torch.ops import hop_scores as HS
@@ -443,11 +483,11 @@ def phase_build(ctx: Ctx):
         print("build: skipped (rehearsal)")
         return
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(9) as pool:   # one nvcc per source, started together
+    with ThreadPoolExecutor(10) as pool:   # one nvcc per source, started together
         unstaged = pool.submit(build_pairs_unstaged)
         for fut in [pool.submit(fn) for fn in (FS.build_mma, FS.build, PS.build, PS.build_mma,
                                                ST.build_v1, ST.build_v1_mma, HS.build,
-                                               BS.build_mma)]:
+                                               BS.build_mma, AK.build)]:
             fut.result()
         ctx.pairs_unstaged = unstaged.result()
     PS.build_grouped()                    # kernel C: the second entry point of pq_scan.cu
@@ -456,11 +496,11 @@ def phase_build(ctx: Ctx):
     ST.build_v2_mma()                     # kernel F: the second entry point of scan_topk_mma.cu
     ST.build_v2_passes()                  # the CUDA-core F, scan_topk.cu's, for comparison
     ctx.report("build seconds (flat_scan_mma.cu, flat_scan.cu, pq_scan.cu, pq_scan_mma.cu, "
-               "scan_topk.cu, scan_topk_mma.cu, hop_scores.cu and block_bins.cu in parallel, "
-               "with phase 12's unstaged pair scan; seven kernels, twelve entry points)",
-               round(time.perf_counter() - t0, 2))
+               "scan_topk.cu, scan_topk_mma.cu, hop_scores.cu, block_bins.cu and "
+               "approx_topk.cu in parallel, with phase 12's unstaged pair scan; eight kernels, "
+               "thirteen entry points)", round(time.perf_counter() - t0, 2))
     for info in (FS.build_info_mma, FS.build_info, PS.build_info, PS.build_info_mma,
-                 ST.build_info, ST.build_info_mma, HS.build_info, BS.build_info):
+                 ST.build_info, ST.build_info_mma, HS.build_info, BS.build_info, AK.build_info):
         print(f"  {os.path.basename(info['path'])}: {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1829,16 +1869,20 @@ def kernel_counts():
     from zvdb_tpu_torch.ops import pq_scan as PS
     from zvdb_tpu_torch.ops import scan_topk as ST
 
+    from zvdb_tpu_torch.ops import approx_topk as AK
+
     return dict(A=FS.flat_scan_bins.launches, A_mma=FS.flat_scan_bins.launches_mma,
                 B=PS.pq_scan_bins.launches,
                 B_mma=PS.pq_scan_bins.launches_mma, C=PS.pq_grouped_scan_bins.launches,
                 C_pairs=PS.pq_grouped_scan_pairs.launches, D=BS.block_bins.launches,
                 D_mma=BS.block_bins.launches_mma,
                 E=ST.flat_topk_pallas.launches, E_mma=ST.flat_topk_pallas.launches_mma,
-                F=ST.flat_topk_pallas2.launches, F_mma=ST.flat_topk_pallas2.launches_mma)
+                F=ST.flat_topk_pallas2.launches, F_mma=ST.flat_topk_pallas2.launches_mma,
+                approx=AK.approx_min_k.launches)
 
 
 def reset_kernel_counts():
+    from zvdb_tpu_torch.ops import approx_topk as AK
     from zvdb_tpu_torch.ops import block_scan as BS
     from zvdb_tpu_torch.ops import flat_scan as FS
     from zvdb_tpu_torch.ops import pq_scan as PS
@@ -1850,9 +1894,70 @@ def reset_kernel_counts():
     BS.block_bins.launches = BS.block_bins.launches_mma = 0
     ST.flat_topk_pallas.launches = ST.flat_topk_pallas.launches_mma = 0
     ST.flat_topk_pallas2.launches = ST.flat_topk_pallas2.launches_mma = 0
+    AK.approx_min_k.launches = 0
+
+
+def besides_approx(counts: dict) -> dict:
+    """The counters of `counts` other than approx_min_k's that are not 0."""
+    return {k: v for k, v in counts.items() if k != "approx" and v}
+
+
+def check_approx(ctx: Ctx, label: str, got: int, want: int):
+    """On the card, approx_min_k must have launched exactly `want` times:
+    once for each call of a site whose JAX guard holds, at no other."""
+    ctx.report(f"{label} approx_min_k launches", f"{got} (expected {want})")
+    if not ctx.rehearse and got != want:
+        raise AssertionError(f"{label}: approx_min_k launched {got} times, expected {want}")
+
+
+def binned_plain(s, k, recall_target=0.95):
+    """The kernel's function in plain PyTorch at the operand's own L:
+    what approx_min_k computes on the card, on any device; counts nothing."""
+    from zvdb_tpu_torch.ops import approx_topk as AK
+
+    return AK._approx_min_k_plain(
+        s, k, AK.reduction_output_size(s.shape[-1], s.dim(), k, recall_target))
+
+
+def exact_selection(s, k, recall_target=0.95):
+    """The exact top-k the sites took before approx_min_k had a kernel."""
+    from zvdb_tpu_torch.ops import topk as T
+
+    return T.smallest_k_dense(s, k)
+
+
+class _Swapped:
+    """What every approx_min_k site calls while site_selection holds: `select`,
+    with the kernel wrapper's launch counter read and written through."""
+
+    def __init__(self, select, kernel):
+        self.select, self.kernel = select, kernel
+
+    def __call__(self, s, k, recall_target=0.95):
+        return self.select(s, k, recall_target)
+
+    launches = property(lambda self: self.kernel.launches,
+                        lambda self, v: setattr(self.kernel, "launches", v))
+
+
+@contextlib.contextmanager
+def site_selection(select):
+    """Every approx_min_k site (each calls ops/approx_topk.py:approx_min_k
+    through the module) selects with `select` inside the block: the CPU side
+    of a card-vs-CPU comparison takes `binned_plain`, as the card selects; a
+    comparison with an exact path takes `exact_selection`."""
+    from zvdb_tpu_torch.ops import approx_topk as AK
+
+    saved = AK.approx_min_k
+    AK.approx_min_k = _Swapped(select, getattr(saved, "kernel", saved))
+    try:
+        yield
+    finally:
+        AK.approx_min_k = saved
 
 
 def phase_cagra_main(ctx: Ctx, x1, q1, gt):
+    import bench_cuda as BC
     from zvdb_tpu_torch import CagraIndex
     from zvdb_tpu_torch.bench.harness import recall_at_k
 
@@ -1894,11 +1999,16 @@ def phase_cagra_main(ctx: Ctx, x1, q1, gt):
         ctx.report("cagra_1m peak device memory GB (build + search, max_memory_allocated)",
                    torch.cuda.max_memory_allocated() / 1e9)
     if not ctx.rehearse and (after_build["D"] != expected or after_build["D_mma"] != expected
-                             or after_build["A"] or after_build["B"] or after_build["C"]):
+                             or after_build["A"] or after_build["B"] or after_build["C"]
+                             or after_build["approx"]):
         raise AssertionError(f"build launched {after_build}, expected D == D_mma == {expected} "
                              "only")
-    if after_search != after_build:
+    # search: approx_min_k selects the seed anchors, once a batch (A > 4 * n_seeds)
+    if besides_approx(after_search) != besides_approx(after_build):
         raise AssertionError(f"search launched kernels: {after_build} -> {after_search}")
+    check_approx(ctx, f"cagra_1m search ({n_batches} batches)",
+                 after_search["approx"] - after_build["approx"],
+                 n_batches * BC.cagra_seed_launches(idx))
     if rec < 0.95:
         raise AssertionError(f"cagra_1m recall@10 {rec} < 0.95")
     for ef in (16, 24):
@@ -3068,7 +3178,8 @@ def phase_ivf_carry(ctx: Ctx, x1):
     """26. One small index built on the CPU and carried by from_numpy onto
     the card and onto the CPU: the same ids from both, f32 blocks and int8 +
     rerank, at a batch that takes the pair scan and one that takes the
-    grouped scan (the path runs no kernel, so this is its device check)."""
+    grouped scan (the pair scan's cut runs approx_min_k on the card where
+    cap >= 4 * kk; the CPU side then selects with its plain version)."""
     from zvdb_tpu_torch import IVFConfig, IVFIndex
     from zvdb_tpu_torch.index.ivf import use_pair_scan
 
@@ -3088,7 +3199,8 @@ def phase_ivf_carry(ctx: Ctx, x1):
             qq = (x[rng.integers(0, n, b)]
                   + 0.05 * rng.standard_normal((b, ctx.dim))).astype(np.float32)
             sc, ic = card.search(qq, K)
-            sp, ip = cpu.search(qq, K)
+            with site_selection(binned_plain):
+                sp, ip = cpu.search(qq, K)
             differ = int((ic.cpu() != ip).sum())
             err = float((sc.cpu() - sp).abs().max())
             scan = "pair" if use_pair_scan(c, b, cfg.nprobe) else "grouped"
@@ -3118,9 +3230,31 @@ def _compare_scans(ps, pi, gs, gi, live):
     return err, int(missing.any(-1).sum()), int(bad.any(-1).sum())
 
 
+def ivf_calls(ctx: Ctx, idx, nq: int, nprobe: int, passes: int, rerank: int = 0) -> int:
+    """approx_min_k launches of `passes` passes of unfiltered IVF search
+    calls over nq queries in batches of ctx.batch (bench_cuda's guards)."""
+    import bench_cuda as BC
+
+    return passes * sum(BC.ivf_search_launches(idx, min(ctx.batch, nq - lo), nprobe, K, rerank)
+                        for lo in range(0, nq, ctx.batch))
+
+
+def sharded_ivf_calls(ctx: Ctx, idx, nq: int, nprobe: int, passes: int) -> int:
+    """ivf_calls for a ShardedIVF: each shard's ivf_search_impl at the
+    local probe count the sharded search gives it."""
+    import bench_cuda as BC
+
+    p_loc = min(max(1, -(-nprobe // idx.n_shards) + 1), idx.state[0].centroids.shape[0])
+    return passes * sum(
+        BC.ivf_search_launches(types.SimpleNamespace(state=st), min(ctx.batch, nq - lo), p_loc,
+                               K, idx.cfg.rerank)
+        for st in idx.state for lo in range(0, nq, ctx.batch))
+
+
 def ivf_scan_check(ctx: Ctx, idx, q1, p: int, label: str):
-    """Both scans on the first batch's probes at nprobe p, held together;
-    the share of probe pairs the grouped scan's q_cap drops."""
+    """Both scans on the first batch's probes at nprobe p, held together
+    (the pair scan's cut taken exactly, as the grouped scan's is); the
+    share of probe pairs the grouped scan's q_cap drops."""
     from zvdb_tpu_torch.index import ivf as TI
     from zvdb_tpu_torch.ops import distance as D
     from zvdb_tpu_torch.ops import topk as T
@@ -3132,7 +3266,8 @@ def ivf_scan_check(ctx: Ctx, idx, q1, p: int, label: str):
     cs = D.pairwise_scores(qp, st.centroids, st.c_norms, cfg.metric, precision="highest")
     _, probes = T.smallest_k_dense(cs, p)
     resid = cfg.dtype == "int8"
-    ps, pi = TI._pair_scan(st, qp, cs, probes, kk, cfg.metric, resid, "highest")
+    with site_selection(exact_selection):
+        ps, pi = TI._pair_scan(st, qp, cs, probes, kk, cfg.metric, resid, "highest")
     gs, gi = TI._grouped_scan(st, qp, cs, probes, kk, cfg.metric, resid, 4.0, "highest")
     qslot, pslot = TI._slot_pairs(probes, b, p, c, TI.group_q_cap(b, p, c, 4.0))
     live = torch.zeros((b, p), dtype=torch.bool, device=ctx.device)
@@ -3151,7 +3286,8 @@ def ivf_scan_check(ctx: Ctx, idx, q1, p: int, label: str):
 def ivf_sweep(ctx: Ctx, idx, q1, gt, nprobes, label: str):
     """recall@10, the scan taken, QPS (3 runs) and peak device memory at
     each nprobe; returns (the first nprobe with recall >= 0.95, else the
-    last, its ids, {nprobe: recall})."""
+    last, its ids, {nprobe: recall}). Four passes over q1 at each nprobe:
+    approx_min_k launches ivf_calls(..., 4) times."""
     from zvdb_tpu_torch.bench.harness import recall_at_k
     from zvdb_tpu_torch.index.ivf import use_pair_scan
 
@@ -3215,9 +3351,11 @@ def phase_ivf_main(ctx: Ctx, x1, q1, gt):
     reset_kernel_counts()
     np_, ids, recs = ivf_sweep(ctx, idx, q1, gt, IVF_NPROBES, "ivf_1m")
     launched = kernel_counts()
-    if any(launched.values()):
+    if besides_approx(launched):
         raise AssertionError(f"the IVF search launched kernels: {launched}")
     ctx.report("ivf_1m kernel launches (search, all nprobes)", "none of A-G")
+    check_approx(ctx, "ivf_1m search (all nprobes)", launched["approx"],
+                 sum(ivf_calls(ctx, idx, q1.shape[0], p, 4) for p in IVF_NPROBES))
     for p in IVF_NPROBES:
         ivf_scan_check(ctx, idx, q1, p, "ivf_1m")
     profile_search(ctx, idx, q1, label=f"ivf_1m nprobe={np_}", search_kwargs={"nprobe": np_})
@@ -3245,8 +3383,12 @@ def phase_ivf_main(ctx: Ctx, x1, q1, gt):
                        f"recall@10 vs the masked truth {rec}, {dt * 1e3:.1f} ms")
             if not np.isin(got[got >= 0], allow).all():
                 raise AssertionError(f"filtered {name} {mode}: an id outside the allowlist")
-            if mode == "scan" and rec < 0.99:
-                raise AssertionError(f"filtered {name} scan recall {rec} < 0.99 (exact scan)")
+            # the masked flat scan: exact scores, approx_min_k at 0.97 over tiles
+            # of 131,072 rows (L = 512), where two of a query's 10 best rows
+            # share a tile and a bin ~1e-3 of the time at 1M; a rehearsal's
+            # few rows crowd one tile, so its recall is not held
+            if mode == "scan" and rec < 0.99 and not ctx.rehearse:
+                raise AssertionError(f"filtered {name} scan recall {rec} < 0.99")
     qr = q1[:256]
     radius = float(np.median(oracle.search(qr, K)[0].cpu().numpy()[:, -1]))
     t0 = time.perf_counter()
@@ -3283,8 +3425,11 @@ def phase_ivf_main(ctx: Ctx, x1, q1, gt):
                f"{dt:.4f} s, {n_add / dt:.1f} rows/s, "
                f"{'the O(new) append' if appended else 'a repack'}; recall@10 after "
                f"(nprobe={np_}) {rec}; self-hit@1 of the added rows {hit}")
-    if not appended or any(kernel_counts().values()):
+    if not appended or besides_approx(kernel_counts()):
         raise AssertionError("the add did not take the append, or launched a kernel")
+    check_approx(ctx, "ivf_1m add + its two searches", kernel_counts()["approx"],
+                 ivf_calls(ctx, add_idx, q1.shape[0], np_, 1)
+                 + ivf_calls(ctx, add_idx, n_add, np_, 1))
     if hit < 0.95:
         raise AssertionError(f"self-hit@1 of the added rows {hit} < 0.95")
     del add_idx, xd
@@ -3329,8 +3474,10 @@ def phase_ivf_int8(ctx: Ctx, x1, q1, gt):
                f"({ {k: round(v / 1e9, 3) for k, v in st['component_bytes'].items()} })")
     reset_kernel_counts()
     np_, ids, recs = ivf_sweep(ctx, idx, q1, gt, IVF8_NPROBES, "ivf_1m_int8")
-    if any(kernel_counts().values()):
+    if besides_approx(kernel_counts()):
         raise AssertionError("the int8 IVF search launched kernels")
+    check_approx(ctx, "ivf_1m_int8 search (all nprobes)", kernel_counts()["approx"],
+                 sum(ivf_calls(ctx, idx, q1.shape[0], p, 4, cfg.rerank) for p in IVF8_NPROBES))
     ivf_scan_check(ctx, idx, q1, np_, "ivf_1m_int8")
     profile_search(ctx, idx, q1, label=f"ivf_1m_int8 nprobe={np_}",
                    search_kwargs={"nprobe": np_})
@@ -3464,6 +3611,32 @@ def differing_ties(label, got, want, atol):
     return int(((ia != ib) & fin).sum())
 
 
+def hold_approx(label, got, ref, exact, q, x, bar):
+    """An l2 approx=True search's (scores, ids) held three ways: against the
+    same search with approx_min_k swapped for its plain version (`ref`:
+    scores slot by slot, ids only at ties), by each id's squared distance
+    recomputed in f64 from the host rows (the id names the row that scored),
+    and by recall@10 against the exact search `exact`, at least `bar`.
+    Returns (ids differing from `ref`, recall@10)."""
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+
+    s, i = got
+    if not ((i >= -1) & (i < x.shape[0])).all():
+        raise AssertionError(f"{label}: an id outside [-1, n)")
+    bad = differing_ties(f"{label} against its plain selection", got, ref, atol=1e-3)
+    live = i >= 0
+    rows = x[i[live]].astype(np.float64)
+    qs = np.repeat(q.astype(np.float64), live.sum(1), axis=0)
+    d = ((rows - qs) ** 2).sum(-1)
+    if not np.isclose(s[live], d, rtol=1e-4, atol=1e-3).all():
+        raise AssertionError(f"{label}: an id's f64 distance differs from its score")
+    rec = recall_at_k(i, exact[1], K)
+    if rec < bar:
+        raise AssertionError(f"{label}: recall@10 {rec} against the exact search is below "
+                             f"the bins' bar {bar:.4f}")
+    return bad, rec
+
+
 def shard_times(ctx: Ctx, idx, q1, label: str, **search_kwargs):
     """One pass over every query with a utils.profiling.PhaseRecorder on the
     index: ms a batch of each shard's local search and of the merge (each
@@ -3500,7 +3673,13 @@ def range_counts_check(ctx, idx, oracle, q1, label: str):
 
 def phase_sharded_flat(ctx: Ctx, x1, q1, gt):
     """30. sharded_flat_1m: ShardedFlat(FlatConfig(precision="highest")) over
-    4 shards on the card against the port's single-chip exact FlatIndex."""
+    4 shards on the card. approx=False (each shard's exact top-k, the
+    selection every search took before approx_min_k had a kernel) against
+    the port's single-chip exact FlatIndex; approx=True (the default: each
+    shard's k by approx_min_k, 4 launches a batch) against its own run with
+    the kernel's plain version, by each id's f64 distance, and by recall@10
+    against approx=False at the bins' bar, with QPS and span times beside
+    it; the filtered batch both ways, held alike."""
     from zvdb_tpu_torch import FlatConfig, FlatIndex, ShardedFlat
     from zvdb_tpu_torch.bench.harness import recall_at_k
     from zvdb_tpu_torch.utils.profiling import Phase, live_buffer_bytes
@@ -3524,15 +3703,35 @@ def phase_sharded_flat(ctx: Ctx, x1, q1, gt):
     else:
         ctx.report("sharded_flat_1m live_buffer_bytes", "not measured (CUDA tensors only)")
 
-    got, want = batched_search(ctx, idx, q1), batched_search(ctx, oracle, q1)
+    exact = {"approx": False}
+    got, want = batched_search(ctx, idx, q1, **exact), batched_search(ctx, oracle, q1)
     bad = differing_ties("sharded_flat_1m", got, want, atol=1e-3)
-    ctx.report("sharded_flat_1m ids against the single-chip exact FlatIndex (all queries)",
-               f"{bad} of {got[1].size} differ, each at a tie; recall@10 vs phase 4's truth "
-               f"{recall_at_k(got[1], gt, K)}")
-    ctx.report(f"sharded_flat_1m search QPS (batches of {ctx.batch}, 3 runs)",
-               search_qps(ctx, idx, q1, search_kwargs={}))
-    shard_times(ctx, idx, q1, "sharded_flat_1m")
+    ctx.report("sharded_flat_1m approx=False ids against the single-chip exact FlatIndex (all "
+               "queries)", f"{bad} of {got[1].size} differ, each at a tie; recall@10 vs phase "
+               f"4's truth {recall_at_k(got[1], gt, K)}")
+    if besides_approx(kernel_counts()) or kernel_counts()["approx"]:
+        raise AssertionError(f"sharded flat approx=False launched kernels: {kernel_counts()}")
+    n_batches = -(-q1.shape[0] // ctx.batch)
+    apx = batched_search(ctx, idx, q1)
+    check_approx(ctx, f"sharded_flat_1m approx=True ({n_batches} batches x {N_SHARDS} shards)",
+                 kernel_counts()["approx"], n_batches * N_SHARDS)
+    with site_selection(binned_plain):
+        ref = batched_search(ctx, idx, q1)
+    shard_n = ctx.n // N_SHARDS
+    bar = selection_bar(shard_n, cfg.recall_target, q1.shape[0])
+    bad, rec = hold_approx("sharded_flat_1m approx=True", apx, ref, got, q1, x1, bar)
+    ctx.report("sharded_flat_1m approx=True recall@10 vs phase 4's truth / vs the exact "
+               "sharded search", f"{recall_at_k(apx[1], gt, K)} / {rec} (bar {bar:.4f}); "
+               f"{bad} ids differ from its run with the plain selection (ties); each id's "
+               "f64 distance equals its score")
+    for label, kw in (("approx=False", exact), ("approx=True", {}), ("approx=True", {}),
+                      ("approx=False", exact)):
+        ctx.report(f"sharded_flat_1m {label} search QPS (batches of {ctx.batch}, 3 runs)",
+                   search_qps(ctx, idx, q1, search_kwargs=kw))
+        shard_times(ctx, idx, q1, f"sharded_flat_1m {label}", **kw)
     profile_search(ctx, idx, q1, label="sharded_flat_1m", search_kwargs={})
+    profile_search(ctx, idx, q1, label="sharded_flat_1m approx=False", search_kwargs=exact)
+    reset_kernel_counts()
 
     rng = np.random.default_rng(30)
     dead = rng.choice(ctx.n, ctx.n // 100, replace=False)
@@ -3540,7 +3739,7 @@ def phase_sharded_flat(ctx: Ctx, x1, q1, gt):
         removed = idx.remove(dead)
     oracle.remove(dead)
     qf = q1[:ctx.batch]
-    got = tuple(a.cpu().numpy() for a in idx.search(qf, K))
+    got = tuple(a.cpu().numpy() for a in idx.search(qf, K, approx=False))
     bad = differing_ties("sharded_flat_1m after remove", got,
                          tuple(a.cpu().numpy() for a in oracle.search(qf, K)), atol=1e-3)
     if removed != dead.size or np.isin(got[1], dead).any():
@@ -3548,7 +3747,7 @@ def phase_sharded_flat(ctx: Ctx, x1, q1, gt):
     allow = np.sort(rng.choice(ctx.n, ctx.n // 10, replace=False))
     ctx.sync()
     t0 = time.perf_counter()
-    fgot = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow))
+    fgot = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow, approx=False))
     t_f = time.perf_counter() - t0
     fbad = differing_ties("sharded_flat_1m filtered", fgot,
                           tuple(a.cpu().numpy() for a in oracle.search(qf, K, allowed=allow)),
@@ -3556,12 +3755,26 @@ def phase_sharded_flat(ctx: Ctx, x1, q1, gt):
     ids = fgot[1]
     if not np.isin(ids[ids >= 0], allow).all() or np.isin(ids, dead).any():
         raise AssertionError("sharded_flat_1m filtered: an id outside the allowlist or removed")
-    ctx.report("sharded_flat_1m remove 1% + a 10% allowlist", f"{removed} ids removed in "
-               f"{p.elapsed_s * 1e3:.1f} ms, {bad} ids differ from the oracle's after it (ties); "
-               f"filtered batch {t_f * 1e3:.1f} ms, {fbad} differ (ties)")
+    ctx.report("sharded_flat_1m remove 1% + a 10% allowlist (approx=False)", f"{removed} ids "
+               f"removed in {p.elapsed_s * 1e3:.1f} ms, {bad} ids differ from the oracle's "
+               f"after it (ties); filtered batch {t_f * 1e3:.1f} ms, {fbad} differ (ties)")
+    fapx = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow))
+    if not np.isin(fapx[1][fapx[1] >= 0], allow).all() or np.isin(fapx[1], dead).any():
+        raise AssertionError("sharded_flat_1m filtered approx=True: an id outside the allowlist "
+                             "or removed")
+    with site_selection(binned_plain):
+        fref = tuple(a.cpu().numpy() for a in idx.search(qf, K, allowed=allow))
+    fbar = selection_bar(shard_n, cfg.recall_target, qf.shape[0])
+    fbad, frec = hold_approx("sharded_flat_1m filtered approx=True", fapx, fref, fgot,
+                             qf, x1, fbar)
+    ctx.report("sharded_flat_1m filtered approx=True recall@10 vs the exact filtered search",
+               f"{frec} (bar {fbar:.4f}); {fbad} ids differ from its run with the plain "
+               "selection (ties); each id's f64 distance equals its score")
     range_counts_check(ctx, idx, oracle, q1, "sharded_flat_1m")
-    if any(kernel_counts().values()):
+    if besides_approx(kernel_counts()):
         raise AssertionError(f"the sharded flat path launched kernels: {kernel_counts()}")
+    check_approx(ctx, "sharded_flat_1m filtered approx=True batch", kernel_counts()["approx"],
+                 N_SHARDS)
     del idx
     return oracle, dead
 
@@ -4092,7 +4305,8 @@ def phase_sharded_pq_persist(ctx: Ctx, x1):
         if not torch.equal(before, back.search(qb, K, **kw)[1]):
             raise AssertionError(f"{name}: ids differ after the save/load round trip")
         card = tuple(a.cpu().numpy() for a in back.search(qc, K, **kw))
-        host = tuple(a.numpy() for a in cpu.search(qc, K, **kw))
+        with site_selection(binned_plain):   # the CPU selects as approx_min_k's kernel does
+            host = tuple(a.numpy() for a in cpu.search(qc, K, **kw))
         bad = differing_ties(f"{name} card == CPU", card, host, atol=1e-3)
         if bad > card[1].size // 100:
             raise AssertionError(f"{name}: {bad} ids differ between the card and the CPU")
@@ -4128,9 +4342,12 @@ def phase_sharded_pq_persist(ctx: Ctx, x1):
     line.append(same("exhaustive pool after remove", sh.search(qe, K, nprobe=10 ** 6),
                      single.search(qe, K, nprobe=8)))
     allowed = np.arange(0, 2000, 3)
+    # the single chip's filtered scan is masked_exact_search, whose selection
+    # is approx_min_k (as JAX's); the sharded masked scan selects exactly
+    with site_selection(exact_selection):
+        want = single.search(qe, K, nprobe=8, allowed=allowed)
     line.append(same("exhaustive pool filtered", sh.search(qe, K, nprobe=10 ** 6,
-                                                           allowed=allowed),
-                     single.search(qe, K, nprobe=8, allowed=allowed)))
+                                                           allowed=allowed), want))
     ctx.report("ShardedIVFPQ == IVFPQIndex on an exhaustive pool (2000 x 24d, 4 shards, on "
                "the device)", f"ids differing (ties only): plain {line[0]}, after remove "
                f"{line[1]}, filtered {line[2]}")
@@ -4209,9 +4426,12 @@ def phase_sharded_ivf(ctx: Ctx, x1, q1, gt, ivf_recs: dict, ivf8_recs: dict):
     trace_split(ctx, f"sharded_ivf_1m one traced batch of {ctx.batch} (nprobe=8)",
                 lambda: idx.search(q1[:ctx.batch], K, nprobe=8))
     launched = kernel_counts()
-    if any(launched.values()):
+    if besides_approx(launched):
         raise AssertionError(f"the sharded IVF path launched kernels: {launched}")
     ctx.report("sharded_ivf_1m kernel launches (build and search, all nprobes)", "none of A-G")
+    check_approx(ctx, "sharded_ivf_1m search (all nprobes)", launched["approx"],
+                 sum(sharded_ivf_calls(ctx, idx, q1.shape[0], p_, 5) for p_ in IVF_NPROBES)
+                 + sharded_ivf_calls(ctx, idx, ctx.batch, 8, 1))
     if recs[8] < 0.95 or recs[8] < ivf_recs[8] - 0.005:
         raise AssertionError(f"sharded_ivf_1m recall@10 {recs[8]} at nprobe 8 < max(0.95, "
                              f"{ivf_recs[8]} - 0.005)")
@@ -4305,6 +4525,7 @@ def phase_sharded_ivf(ctx: Ctx, x1, q1, gt, ivf_recs: dict, ivf8_recs: dict):
     with Phase("sharded_ivf_1m_int8 build") as p:
         idx = ShardedIVF(cfg8, mesh=mesh)
         idx.build(x1)
+    built = kernel_counts()
     ids = batched_ids(ctx, idx, q1, nprobe=4)
     rec = recall_at_k(ids, gt, K)
     qps = search_qps(ctx, idx, q1, search_kwargs={"nprobe": 4})
@@ -4319,6 +4540,9 @@ def phase_sharded_ivf(ctx: Ctx, x1, q1, gt, ivf_recs: dict, ivf8_recs: dict):
         ctx.report("sharded_ivf_1m_int8 peak device memory GB (build + search)",
                    torch.cuda.max_memory_allocated() / 1e9)
     shard_times(ctx, idx, q1, "sharded_ivf_1m_int8 nprobe=4", nprobe=4)
+    check_approx(ctx, "sharded_ivf_1m_int8 build + search (5 passes, nprobe=4)",
+                 kernel_counts()["approx"],
+                 built["approx"] + sharded_ivf_calls(ctx, idx, q1.shape[0], 4, 5))
     ctx.sync()
     t0 = time.perf_counter()
     got = idx.search(qf, K, nprobe=4, allowed=allow, filter_mode="probe")[1].cpu().numpy()
@@ -4328,7 +4552,7 @@ def phase_sharded_ivf(ctx: Ctx, x1, q1, gt, ivf_recs: dict, ivf8_recs: dict):
     ctx.report("sharded_ivf_1m_int8 filtered 1% in probe mode (int8 has no exact row form)",
                f"{dt * 1e3:.1f} ms, recall {recall_at_k(got, want[1], K)} against the exact "
                "filtered search")
-    if any(kernel_counts().values()):
+    if besides_approx(kernel_counts()) or built["approx"]:
         raise AssertionError(f"the sharded int8 IVF path launched kernels: {kernel_counts()}")
     if rec < 0.95:
         raise AssertionError(f"sharded_ivf_1m_int8 recall@10 {rec} < 0.95 at nprobe 4")
@@ -4338,7 +4562,9 @@ def phase_sharded_ivf(ctx: Ctx, x1, q1, gt, ivf_recs: dict, ivf8_recs: dict):
 def phase_sharded_cagra(ctx: Ctx, x1, q1, gt, cagra_recall: float):
     """37. sharded_cagra_1m: phase 14's CagraConfig over 4 x 250,000 rows,
     the shards' graphs built together by build_knn_graph_multi (kernel D in
-    every shard's cluster-kNN build), searched shard by shard."""
+    every shard's cluster-kNN build), searched shard by shard (approx_min_k
+    selecting each shard's seed anchors)."""
+    import bench_cuda as BC
     from zvdb_tpu_torch import FlatConfig, FlatIndex, ShardedCagra
     from zvdb_tpu_torch.bench.harness import recall_at_k
     from zvdb_tpu_torch.utils.profiling import Phase
@@ -4398,8 +4624,14 @@ def phase_sharded_cagra(ctx: Ctx, x1, q1, gt, cagra_recall: float):
     shard_times(ctx, idx, q1, "sharded_cagra_1m", **CAGRA_SEARCH)
     trace_split(ctx, f"sharded_cagra_1m one traced batch of {ctx.batch}",
                 lambda: idx.search(q1[:ctx.batch], K, **CAGRA_SEARCH))
-    if any(kernel_counts().values()):
+    if besides_approx(kernel_counts()):
         raise AssertionError(f"sharded_cagra_1m search launched kernels: {kernel_counts()}")
+    # approx_min_k selects each shard's seed anchors: 5 passes over q1 and one batch
+    n_batches = -(-q1.shape[0] // ctx.batch)
+    seeds = sum(BC.cagra_seed_launches(types.SimpleNamespace(state=st, cfg=idx.cfg))
+                for st in idx.state)
+    check_approx(ctx, "sharded_cagra_1m search", kernel_counts()["approx"],
+                 (5 * n_batches + 1) * seeds)
     if rec < 0.95:
         raise AssertionError(f"sharded_cagra_1m recall@10 {rec} < 0.95")
 
@@ -4476,7 +4708,8 @@ def phase_sharded_cagra(ctx: Ctx, x1, q1, gt, cagra_recall: float):
 
 def phase_sharded_ivf_cagra_persist(ctx: Ctx, x1):
     """38. ShardedIVF and ShardedCagra at 100k: save/load round trips, card
-    == CPU on the saved files, ShardedIVF == IVFIndex on an exhaustive pool,
+    == CPU on the saved files (the CPU's approx_min_k sites taking the
+    kernel's plain version), ShardedIVF == IVFIndex on an exhaustive pool,
     and build_knn_graph_multi == build_knn_graph shard by shard, on the card."""
     from zvdb_tpu_torch import IVFConfig, IVFIndex, ShardedCagra, ShardedIVF, make_mesh
     from zvdb_tpu_torch.index import knn_graph as TK
@@ -4512,7 +4745,8 @@ def phase_sharded_ivf_cagra_persist(ctx: Ctx, x1):
         if not torch.equal(before, back.search(qb, K, **kw)[1]):
             raise AssertionError(f"{name}: ids differ after the save/load round trip")
         card = tuple(a.cpu().numpy() for a in back.search(qc, K, **kw))
-        host = tuple(a.numpy() for a in cpu.search(qc, K, **kw))
+        with site_selection(binned_plain):   # the CPU selects as approx_min_k's kernel does
+            host = tuple(a.numpy() for a in cpu.search(qc, K, **kw))
         bad = differing_ties(f"{name} card == CPU", card, host, atol=1e-3)
         if bad > card[1].size // 100:
             raise AssertionError(f"{name}: {bad} ids differ between the card and the CPU")
@@ -4546,10 +4780,13 @@ def phase_sharded_ivf_cagra_persist(ctx: Ctx, x1):
                      single.search(qe, K, nprobe=10 ** 6)))
     allowed = np.arange(0, 2000, 3)
     for mode in ("scan", "probe"):
+        # the single chip's "scan" selects by approx_min_k (masked_exact_search,
+        # as JAX's); the sharded one exactly (parallel/scan_filter.py)
+        with site_selection(exact_selection):
+            want = single.search(qe, K, nprobe=10 ** 6, allowed=allowed, filter_mode=mode)
         line.append(same(f"exhaustive pool filtered ({mode})",
                          sh.search(qe, K, nprobe=10 ** 6, allowed=allowed, filter_mode=mode),
-                         single.search(qe, K, nprobe=10 ** 6, allowed=allowed,
-                                       filter_mode=mode)))
+                         want))
     ctx.report("ShardedIVF == IVFIndex on an exhaustive pool (2000 x 24d, 4 shards, on the "
                "device)", f"ids differing (ties only): plain {line[0]}, after remove {line[1]}, "
                f"filtered scan {line[2]}, probe {line[3]}")
@@ -4579,6 +4816,18 @@ def phase_sharded_ivf_cagra_persist(ctx: Ctx, x1):
         raise AssertionError("build_knn_graph_multi differs from the per-shard builds")
 
 
+def selection_bar(n: int, recall_target: float, nq: int) -> float:
+    """approx_min_k's expected selection recall@10 over one [B, n] tile,
+    L/k * (1 - (1 - 1/L)^k) (zvdb_tpu/ops/pallas_topk.py), less 4 standard
+    errors of a mean over nq queries (a query loses about Poisson(k(1 - r))
+    of its k)."""
+    from zvdb_tpu_torch.ops.approx_topk import reduction_output_size
+
+    L = reduction_output_size(n, 2, K, recall_target)
+    r = L / K * (1 - (1 - 1 / L) ** K)
+    return r - 4 * ((1 - r) / (K * nq)) ** 0.5
+
+
 def phase_bench_cuda(ctx: Ctx):
     import contextlib
     import io
@@ -4603,14 +4852,295 @@ def phase_bench_cuda(ctx: Ctx):
     for name, keys in BC.ROW_KEYS.items():
         if name not in engines or tuple(engines[name]) != keys:
             raise AssertionError(f"bench_cuda row {name}: {engines.get(name)} lacks {keys}")
-    for name in ("flat", "flat_1m", "flat_1m_pallas"):
-        if engines[name]["recall"] < 0.99:
-            raise AssertionError(f"bench_cuda {name} recall@10 {engines[name]['recall']} < 0.99")
+    # the flat row selects each tile's k by approx_min_k at recall_target 0.97:
+    # its bar is the bins' expected selection recall less 4 standard errors
+    # (flat_1m's rerank absorbs its losses; flat_1m_pallas runs kernel A)
+    bars = dict(flat=min(0.99, selection_bar(n, 0.97, nq)), flat_1m=0.99, flat_1m_pallas=0.99)
+    for name, bar in bars.items():
+        if engines[name]["recall"] < bar:
+            raise AssertionError(f"bench_cuda {name} recall@10 {engines[name]['recall']} < "
+                                 f"{bar}")
     calls = 0 if ctx.rehearse else BC.search_calls(nq, 2048, 6)
     want = {name: 0 for name in counts}
-    want.update(A=calls, A_mma=calls, B=calls, B_mma=calls, C_pairs=calls)
-    if counts != want:
+    # each row checked its own approx_min_k count (bench_cuda.check_launches)
+    want.update(A=calls, A_mma=calls, B=calls, B_mma=calls, C_pairs=calls,
+                approx=counts["approx"])
+    if counts != want or not (ctx.rehearse or counts["approx"]):
         raise AssertionError(f"bench_cuda kernel launches {counts}, expected {want}")
+
+
+# ---------------------------------------------------------------------------
+# approx_min_k: the binned partial top-k of the JAX package's seven
+# lax.approx_min_k sites (ops/approx_topk.py, csrc/approx_topk.cu)
+
+# (shape, k, recall_target) on rows of ties, +-0.0 and +inf
+# (tests/test_torch_approx_topk.py's grid): ragged last windows, N <= 128,
+# k = L = N, rank 3, one and few long rows whose windows split over blocks
+APPROX_GRID = [((6, 1000), 10, 0.95), ((5, 1027), 7, 0.9), ((3, 5, 700), 16, 0.95),
+               ((7, 300), 300, 0.95), ((2, 4096), 1, 0.95), ((6, 1000), 128, 0.5),
+               ((4, 100), 100, 0.95), ((16, 1 << 20), 10, 0.95), ((1, 3_000_000), 100, 0.99),
+               ((300, 2456), 40, 0.95), ((4, 250_000), 256, 0.95), ((64, 2_048), 40, 0.95)]
+# the sites' operands at the main paths' sizes: (label, shape, k, recall_target)
+APPROX_SITES_AT_SIZE = [
+    ("flat row tile", (10_000, 100_000), 10, 0.97),
+    ("flat_1m first-pass tile", (2048, 500_000), 40, 0.97),
+    ("sharded_flat_1m shard", (2048, 250_000), 10, 0.95),
+    ("cagra_1m seed anchors", (2048, 250_000), 16, 0.95),
+    ("IVF probes at C = 4096", (2048, 4096), 8, 0.95),
+    ("ivf_1m pair-scan cut (B*P x cap)", (4096, 2456), 10, 0.95),
+    ("knn_graph block chunk (cagra_1m build)", (12, 1640, 1640), 16, 0.95),
+    ("PQ decode-scan tile (rerank 12)", (2048, 16_384), 120, 0.95),
+]
+
+
+def _approx_tie_rows(shape, seed):
+    rng = np.random.default_rng(seed)
+    s = (np.round(rng.standard_normal(shape) * 2) / 2).astype(np.float32)
+    flat = s.reshape(-1, shape[-1])
+    z = rng.random(flat.shape) < 0.2
+    flat[z] = np.where(rng.random(int(z.sum())) < 0.5, np.float32(-0.0), np.float32(0.0))
+    flat[rng.random(flat.shape) < 0.1] = np.inf
+    if flat.shape[0] > 2:
+        flat[1] = np.inf
+    return s
+
+
+def approx_case(ctx: Ctx, label: str, s, k: int, r: float) -> float:
+    """The kernel (on a CPU rehearsal: the CPU branch) against its plain
+    version on s: positions equal and values equal bit for bit on the card.
+    Returns the largest |value difference| (0.0 when equal)."""
+    from zvdb_tpu_torch.ops import approx_topk as AK
+
+    L = AK.reduction_output_size(s.shape[-1], s.dim(), k, r)
+    v, p = AK.approx_min_k(s, k, recall_target=r)
+    pv, pp = AK._approx_min_k_plain(s, k, L)
+    ctx.sync()
+    fin = torch.isfinite(pv)
+    err = float((v - pv).abs()[fin].max()) if bool(fin.any()) else 0.0
+    equal = torch.equal(p, pp) and torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    rows = s.numel() // s.shape[-1]
+    splits = AK.fold_splits(rows, -(-s.shape[-1] // L))[0]
+    print(f"  approx {label} {tuple(s.shape)} k={k} r={r}: L={L}, splits {splits}, "
+          f"{'equal bit for bit' if equal else 'DIFFER'}", flush=True)
+    if not ctx.rehearse and not equal:
+        raise AssertionError(f"approx_min_k {label}: the kernel differs from its plain version")
+    return err
+
+
+def approx_times(ctx: Ctx, label: str, s, k: int, r: float, reps: int = 20) -> dict:
+    """ms a call of the kernel, its plain version, torch.topk(largest=False)
+    and ops/topk.py:smallest_k_dense (the sites' exact selection) on s, and
+    the bound: s read once and the k (value, position) pairs written, at the
+    card's memory rate."""
+    from zvdb_tpu_torch.ops import approx_topk as AK
+    from zvdb_tpu_torch.ops import topk as T
+
+    L = AK.reduction_output_size(s.shape[-1], s.dim(), k, r)
+    rows = s.numel() // s.shape[-1]
+    few = max(1, reps // 10)
+    out = dict(
+        ms=ctx.time_ms(lambda: AK.approx_min_k(s, k, recall_target=r), reps=reps, warmup=2),
+        plain_ms=ctx.time_ms(lambda: AK._approx_min_k_plain(s, k, L), reps=few),
+        library_ms=ctx.time_ms(lambda: torch.topk(s, k, dim=-1, largest=False), reps=few),
+        smallest_k_dense_ms=ctx.time_ms(lambda: T.smallest_k_dense(s, k), reps=few),
+        bound_ms=(s.numel() * 4 + rows * k * 12) / HBM_BYTES_S * 1e3, bound_by="bytes")
+    ctx.report(f"approx {label} {tuple(s.shape)} k={k} L={L} ms (kernel, plain, torch.topk, "
+               "smallest_k_dense; byte bound)",
+               {key: (round(v, 4) if isinstance(v, float) else v) for key, v in out.items()})
+    return out
+
+
+def phase_approx(ctx: Ctx, x1, q1, gt):
+    """40. approx_min_k: the kernel against its plain version over the
+    test grid and at every site's operand size, timed beside torch.topk and
+    smallest_k_dense; the flat row (bench.py's headline `flat`, 100k x 128d,
+    10,000 queries in one batch) as the main path, its launches counted and
+    its recall read; the flat_1m row against exact selection; then each of
+    the seven sites launches the kernel where JAX's guard holds and not
+    where it fails. Returns (the main path's record, the site times)."""
+    import bench_cuda as BC
+    from zvdb_tpu_torch import (CagraConfig, CagraIndex, FlatConfig, FlatIndex, IVFConfig,
+                                IVFIndex, PQConfig, PQFlatIndex, ShardedFlat, ShardedPQFlat)
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+    from zvdb_tpu_torch.ops import distance as D
+
+    dev = ctx.device
+    t_phase = time.perf_counter()
+    for i, (shape, k, r) in enumerate(APPROX_GRID):
+        if ctx.rehearse and math.prod(shape) > 2_000_000:
+            continue
+        approx_case(ctx, "grid", torch.from_numpy(_approx_tie_rows(shape, i)).to(dev), k, r)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    site_ms = {}
+    for label, shape, k, r in APPROX_SITES_AT_SIZE:
+        if ctx.rehearse:
+            shape = shape[:-2] + (min(shape[-2], 64), shape[-1])
+        s = torch.randn(shape, generator=gen, device=dev)
+        s.view(-1, shape[-1])[:, ::97] = float("inf")
+        approx_case(ctx, label, s, k, r)
+        site_ms[label] = approx_times(ctx, label, s, k, r, reps=3 if ctx.rehearse else 20)
+        del s
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # the main path: bench.py's flat row at full width
+    n = min(100_000, ctx.n)
+    xs = torch.from_numpy(x1[:n]).to(dev)
+    cfg = FlatConfig(dim=ctx.dim, precision="high", recall_target=0.97, tile_n=131072)
+    flat = FlatIndex(cfg, capacity=n, device=dev)
+    flat.add(xs)
+    oracle = FlatIndex(dataclasses.replace(cfg, precision="highest"), capacity=n, device=dev)
+    oracle.add(xs)
+    qd = torch.from_numpy(q1).to(dev)
+    truth = oracle.search(qd, K)[1].cpu().numpy()
+    flat.search(qd, K, approx=True)           # warm
+    ctx.sync()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    ids = flat.search(qd, K, approx=True)[1]
+    ctx.sync()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()["approx"]
+    rec = recall_at_k(ids.cpu().numpy(), truth, K)
+    check_approx(ctx, f"flat row main path (one batch of {q1.shape[0]})", launches,
+                 BC.flat_tiles(n, cfg.tile_n))
+    if besides_approx(kernel_counts()):
+        raise AssertionError(f"the flat row launched other kernels: {kernel_counts()}")
+    bar = selection_bar(n, 0.97, q1.shape[0])
+    ctx.report("flat row (100k x 128d, recall_target 0.97, precision high) recall@10 against "
+               "the exact f32 search / one batch's wall ms",
+               f"{rec} (bar {bar:.4f}: the bins' expected selection recall less 4 standard "
+               f"errors) / {wall * 1e3:.3f}")
+    if rec < bar:
+        raise AssertionError(f"flat row recall@10 {rec} < {bar}")
+    ctx.report("flat row search QPS, approx=True (the kernel) and approx=False (exact "
+               "selection), in turns", {
+                   label: round(q1.shape[0] / (ctx.time_ms(
+                       lambda a=a: flat.search(qd, K, approx=a), reps=3) / 1e3), 1)
+                   for label, a in (("exact", False), ("kernel", True), ("kernel ", True),
+                                    ("exact ", False))})
+    profile_calls(ctx, f"flat row search profile (3 batches of {q1.shape[0]}, approx=True)",
+                  [lambda: flat.search(qd, K, approx=True)] * 3, "batch")
+    # the kernel on the main path's own tile
+    qs = D.preprocess_queries(qd, cfg.metric)
+    s = D.pairwise_scores(qs, flat.state.vectors, flat.state.norms, cfg.metric,
+                          precision=cfg.precision, x_scales=flat.state.scales)
+    err = approx_case(ctx, "flat row main-path tile", s, min(K, n), 0.97)
+    main = approx_times(ctx, "flat row main-path tile", s, min(K, n), 0.97,
+                        reps=3 if ctx.rehearse else 20)
+    main.update(launches=launches, max_abs_err=err)
+    del s, qs, oracle, flat
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # bench.py's flat_1m row (two 500k tiles a batch, rerank 4): the kernel
+    # against the exact selection it replaced, in turns
+    f1 = FlatIndex(FlatConfig(dim=ctx.dim, rerank=4, recall_target=0.97, tile_n=500_000),
+                   capacity=ctx.n, device=dev)
+    f1.add(x1)
+    reset_kernel_counts()
+    rec1 = recall_at_k(batched_ids(ctx, f1, q1, **APPROX), gt, K)
+    check_approx(ctx, "flat_1m row (all batches)", kernel_counts()["approx"],
+                 -(-q1.shape[0] // ctx.batch) * BC.flat_tiles(ctx.n, 500_000))
+    with site_selection(exact_selection):
+        rec0 = recall_at_k(batched_ids(ctx, f1, q1, **APPROX), gt, K)
+    qps = {}
+    for label in ("exact", "kernel", "kernel ", "exact "):
+        with site_selection(exact_selection) if label.startswith("exact") else \
+                contextlib.nullcontext():
+            qps[label] = [round(v, 1) for v in search_qps(ctx, f1, q1)]
+    ctx.report(f"flat_1m row recall@10 (kernel / exact selection) and search QPS (batches of "
+               f"{ctx.batch}, 3 runs each, in turns)", f"{rec1} / {rec0}; {qps}")
+    profile_search(ctx, f1, q1, label="flat_1m row (approx=True)")
+    del f1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # each site: launched where JAX's guard holds, not where it fails
+    qb = q1[:ctx.batch]
+
+    def launched(call):
+        reset_kernel_counts()
+        call()
+        ctx.sync()
+        if besides_approx(kernel_counts()):
+            raise AssertionError(f"approx site check launched other kernels: {kernel_counts()}")
+        return kernel_counts()["approx"]
+
+    # 1. the flat tiled scan: tiles of 32768 (the last padded), the two-pass path
+    f4 = FlatIndex(FlatConfig(dim=ctx.dim, tile_n=32768), capacity=n, device=dev)
+    f4.add(xs)
+    check_approx(ctx, "site 1 flat approx=True, tiles of 32768", launched(
+        lambda: f4.search(qb, K, approx=True)), BC.flat_tiles(n, 32768))
+    check_approx(ctx, "site 1 flat approx=False", launched(
+        lambda: f4.search(qb, K, approx=False)), 0)
+    f2 = FlatIndex(FlatConfig(dim=ctx.dim, rerank=4, recall_target=0.97, tile_n=n // 2),
+                   capacity=n, device=dev)
+    f2.add(xs)
+    check_approx(ctx, "site 1 flat two-pass (rerank 4)", launched(
+        lambda: f2.search(qb, K, approx=True)), BC.flat_tiles(n, n // 2))
+    del f4, f2
+    # 2. ShardedFlat
+    sf = ShardedFlat(FlatConfig(dim=ctx.dim), mesh=sharded_mesh(ctx))
+    sf.build(x1[:n])
+    check_approx(ctx, "site 2 ShardedFlat approx=True", launched(
+        lambda: sf.search(qb, K)), N_SHARDS)
+    check_approx(ctx, "site 2 ShardedFlat approx=False", launched(
+        lambda: sf.search(qb, K, approx=False)), 0)
+    del sf
+    # 3. the PQ decode scan (scan="xla"), single chip and sharded
+    pcfg = PQConfig(dim=ctx.dim, scan="xla")
+    pq = PQFlatIndex(pcfg, device=dev)
+    pq.build(xs)
+    check_approx(ctx, "site 3 PQFlatIndex scan=xla approx=True", launched(
+        lambda: pq.search(qb, K)), BC.flat_tiles(pq.state.norms.shape[0], pcfg.tile_n))
+    check_approx(ctx, "site 3 PQFlatIndex approx=False", launched(
+        lambda: pq.search(qb, K, approx=False)), 0)
+    del pq
+    spq = ShardedPQFlat(pcfg, mesh=sharded_mesh(ctx))
+    spq.build(x1[:n])
+    check_approx(ctx, "site 3 ShardedPQFlat scan=xla approx=True", launched(
+        lambda: spq.search(qb, K)),
+        sum(BC.flat_tiles(st["norms"].shape[0], pcfg.tile_n) for st in spq.state))
+    del spq
+    # 4 and 5. IVF probes (C >= 4096 and 4P <= C) and the pair scan's cut (cap >= 4 kk)
+    for icfg, p_, b in ((IVFConfig(dim=ctx.dim, n_clusters=4096), 8, ctx.batch),
+                        (IVFConfig(dim=ctx.dim, n_clusters=4096, dtype="int8", rerank=4), 8,
+                         ctx.batch),
+                        (IVFConfig(dim=ctx.dim, n_clusters=1024), 8, 256),
+                        (IVFConfig(dim=ctx.dim, n_clusters=1024), 64, ctx.batch)):
+        iv = IVFIndex(icfg, device=dev)
+        iv.build(xs)
+        c, cap = iv.state.blocks.shape[:2]
+        for p, bb in ((p_, b), (c // 4 + 1, 256)):
+            want = BC.ivf_search_launches(iv, bb, p, K, icfg.rerank)
+            check_approx(ctx, f"sites 4+5 IVF C={c} cap={cap} {icfg.dtype} rerank "
+                         f"{icfg.rerank} nprobe={p} B={bb}", launched(
+                             lambda: iv.search(q1[:bb], K, nprobe=p)), want)
+        del iv
+    # 6 and 7. the graph build's block cut (block_topk="approx") and CAGRA's seeds
+    ccfg = CagraConfig(dim=ctx.dim, degree=32, block_topk="approx")
+    cg = CagraIndex(ccfg, device=dev)
+    built = launched(lambda: cg.build(xs))
+    check_approx(ctx, f"site 6 CAGRA build block_topk=approx ({cg.build_stats['c_blocks']} "
+                 f"blocks, cc {cg.build_stats['cc']})", built, BC.graph_build_launches(cg))
+    if not ctx.rehearse and not built:
+        raise AssertionError("site 6: the CAGRA build launched approx_min_k no time")
+    check_approx(ctx, f"site 7 CAGRA seeds ({cg.state.anchors.shape[0]} anchors)", launched(
+        lambda: cg.search(qb, K)), BC.cagra_seed_launches(cg))
+    cg.cfg = dataclasses.replace(ccfg, seed_approx=False)
+    check_approx(ctx, "site 7 CAGRA seeds, seed_approx=False", launched(
+        lambda: cg.search(qb, K)), 0)
+    del cg
+    ex = CagraIndex(dataclasses.replace(ccfg, block_topk="exact", n_anchors=64), device=dev)
+    check_approx(ctx, "site 6 CAGRA build block_topk=exact", launched(lambda: ex.build(xs)), 0)
+    check_approx(ctx, "site 7 CAGRA seeds, 64 anchors = 4 * n_seeds", launched(
+        lambda: ex.search(qb, K)), 0)
+    del ex, xs, qd
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ctx.report("approx phase seconds", round(time.perf_counter() - t_phase, 1))
+    return main, site_ms
 
 
 def main() -> int:
@@ -4622,9 +5152,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     import zvdb_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
-    from zvdb_tpu_torch.bench.harness import recall_at_k
 
     ctx = Ctx(args.rehearse)
+    # a rehearsal's approx_min_k sites select as the card's kernel does
+    with site_selection(binned_plain) if ctx.rehearse else contextlib.nullcontext():
+        return run(ctx)
+
+
+def run(ctx: Ctx) -> int:
+    from zvdb_tpu_torch.bench.harness import recall_at_k
+
     t_start = time.perf_counter()
     phase_device(ctx)
     phase_build(ctx)
@@ -4694,6 +5231,9 @@ def main() -> int:
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
     phase_bench_cuda(ctx)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    ta, _ = phase_approx(ctx, x1, q1, gt)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     hop = tg["experiment"]
     record = {"kernels": [{
@@ -4772,6 +5312,18 @@ def main() -> int:
         "bound_ms": hop["bound_ms"],
         "bound_by": hop["bound_by"],
         "library_ms": hop["library_ms"],
+    }, {
+        "name": "approx_min_k",
+        "route": "cuda",
+        "source": "zvdb_tpu_torch/csrc/approx_topk.cu",
+        "replaces": "zvdb_tpu/index/flat.py:119",
+        "launches": ta["launches"],
+        "max_abs_err": ta["max_abs_err"],
+        "ms": ta["ms"],
+        "plain_ms": ta["plain_ms"],
+        "bound_ms": ta["bound_ms"],
+        "bound_by": ta["bound_by"],
+        "library_ms": ta["library_ms"],
     }]}
     if ctx.rehearse:
         print(json.dumps(record))

@@ -13,7 +13,10 @@
 Differences from the JAX package: random draws (the graph's, the anchor
 rows) come from a torch.Generator seeded from cfg.seed, so one seed builds a
 different index in each package; `CagraIndex.from_numpy` and `load` carry a
-JAX-built index across. seed_approx (TPU hardware top-k) selects exactly.
+JAX-built index across. The seed anchors (seed_approx) and the build's
+block_topk="approx" select through ops/approx_topk.py:approx_min_k under
+JAX's guards, as JAX does through lax.approx_min_k: the binned kernel on the
+card, the exact top-k on the CPU, as JAX's approx_min_k there.
 Every product names its precision (cfg.precision) instead of relying on an
 ambient one. `CagraState.n` is a host int. Entry points take `device=None`,
 which means "cuda"; without a CUDA device they raise unless the caller asks
@@ -30,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import approx_topk as AK
 from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.filter_policy import resolve_filter_mode
@@ -69,7 +73,7 @@ class CagraConfig:
     n_long: int = 4               # random long-range edges per row
     # candidates kept per view (0 -> degree), merged-pool cap entering the
     # diversity prune (0 -> no cap), and the per-block top-k: "exact",
-    # "approx" (exact here: PyTorch has no hardware top-k), "binfold", or
+    # "approx" (approx_min_k: the binned kernel on the card), "binfold", or
     # "pallas" (the block scorer kernel)
     kc_per_view: int = 16
     prune_cap: int = 64
@@ -85,7 +89,7 @@ class CagraConfig:
     search_degree: Optional[int] = 24
     # hop budget; None = ef/expand + 8 (hnsw.beam_layer_fn)
     max_iters: Optional[int] = None
-    # the TPU selects the seed anchors with its hardware top-k; exact here
+    # select the seed anchors with approx_min_k when anchors > 4 * n_seeds
     seed_approx: bool = True
     # --- incremental insert ---
     build_batch: int = 2048
@@ -246,14 +250,19 @@ def cagra_search_impl(
     search_degree: Optional[int] = None,
 ):
     """Returns (user_scores [B, k], ids [B, k]); ids are row ids (insertion
-    order: the graph never reorders rows). seed_approx is accepted for the
-    JAX signature; the seeds are the exact n_seeds best anchors."""
+    order: the graph never reorders rows). With seed_approx and more than
+    4 * n_seeds anchors, the seeds are selected by approx_min_k, as in JAX;
+    else they are the exact n_seeds best anchors."""
     qp = D.preprocess_queries(q, metric)
     efk = max(ef, k)
     # seeds: one [B, A] product over the dense anchor table; the anchor
     # scores ARE the seed scores (anchors hold the stored vectors exactly)
     cs = D.pairwise_scores(qp, arrs.anchors, arrs.a_norms, metric, precision=precision)
-    seed_s, top = T.smallest_k_dense(cs, min(n_seeds, arrs.anchors.shape[0]))
+    s_count = min(n_seeds, arrs.anchors.shape[0])
+    if seed_approx and arrs.anchors.shape[0] > 4 * s_count:
+        seed_s, top = AK.approx_min_k(cs, s_count)
+    else:
+        seed_s, top = T.smallest_k_dense(cs, s_count)
     del cs
     seeds = arrs.a_rows[top]
     if fat:

@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import approx_topk as AK
 from ..ops import distance as D
 from ..ops import topk as T
 from ..ops.flat_scan import flat_scan_topk
@@ -98,10 +99,13 @@ def _search(
 ):
     """Top-k: scan corpus tiles, merge running top-k. Returns (scores, ids).
 
-    The JAX version's approx=True uses lax.approx_min_k, which PyTorch lacks;
-    here both settings select exactly, so recall is at least the reference's
-    and recall_target is unused. Scores are user-facing (squared L2
-    distance, or similarity for dot/cosine).
+    approx=True selects each tile's candidates with ops/approx_topk.py:
+    approx_min_k at recall_target, as the JAX version uses lax.approx_min_k:
+    on the card its kernel folds each [B, tile] score row into bins and
+    keeps the best bins; on the CPU it selects exactly, as JAX's does there.
+    A short last tile is padded with +inf to the tile's width first, as
+    JAX pads the corpus, so its bins are the TPU's. Scores are user-facing
+    (squared L2 distance, or similarity for dot/cosine).
     """
     cap = state.vectors.shape[0]
     tile = min(tile_n, cap)
@@ -115,7 +119,12 @@ def _search(
         s = D.pairwise_scores(qs, state.vectors[t0:t0 + tile], state.norms[t0:t0 + tile],
                               metric, precision=precision,
                               x_scales=state.scales[t0:t0 + tile])
-        ts, tp = T.smallest_k_dense(s, min(k, s.shape[1]))
+        if approx:
+            if s.shape[1] < tile:
+                s = torch.nn.functional.pad(s, (0, tile - s.shape[1]), value=_INF)
+            ts, tp = AK.approx_min_k(s, min(k, tile), recall_target=recall_target)
+        else:
+            ts, tp = T.smallest_k_dense(s, min(k, s.shape[1]))
         ti = torch.where(torch.isfinite(ts), tp.to(torch.int32) + t0, -1)
         ts = torch.where(ti >= 0, ts, _INF)
         ts, ti = _pad_k(ts, ti, k)

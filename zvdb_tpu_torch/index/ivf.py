@@ -15,8 +15,11 @@ centroid with a per-row scale (`dtype="int8"`); q.x is then q.centroid (from
 the probe scores) plus the scaled code product.
 
 No Pallas kernel runs here, in either package: both scans are plain
-products (f32 `torch.bmm`, TF32 off, at the config's precision) and exact
-top-k selections where the JAX package uses `approx_min_k` on large rows.
+products (f32 `torch.bmm`, TF32 off, at the config's precision). Where the
+JAX package selects with `lax.approx_min_k` (the probes when C >= 4096 and
+4 * nprobe <= C; the pair scan's cut when cap >= 4 * kk), the port calls
+ops/approx_topk.py:approx_min_k under the same guards: the binned kernel on
+the card, the exact top-k on the CPU, as JAX's approx_min_k there.
 
 Entry points take `device=None`, which means "cuda"; without a CUDA device
 they raise unless the caller asks for "cpu". The k-means draws from a
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import approx_topk as AK
 from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.filter_policy import resolve_filter_mode
@@ -408,13 +412,14 @@ def ivf_search_impl(state: IVFState, q: torch.Tensor, k: int, nprobe: int, metri
                     id_map: Optional[torch.Tensor] = None):
     """Batched IVF search. Returns (user scores [B, k], ext ids [B, k]).
 
-    Probe scores -> each query's exact top-p clusters (ties to the lower
-    cluster) -> the pair or grouped scan -> a [B, P * kk] pool -> the
-    allowlist (on the whole pool) -> the exact rerank against the shadow
-    store, or the pool's top-k. A sharded wrapper passes `c_mask` ([C]
-    bool: its padded cluster slots are never probed) and `id_map` ([rcap]
-    int32: b_ids, the shadow rows and `allowed` are then indexed by local
-    id, mapped to global ids after the rerank), as in the JAX package."""
+    Probe scores -> each query's top-p clusters (exact, ties to the lower
+    cluster, or approx_min_k under JAX's guard) -> the pair or grouped scan
+    -> a [B, P * kk] pool -> the allowlist (on the whole pool) -> the exact
+    rerank against the shadow store, or the pool's top-k. A sharded wrapper
+    passes `c_mask` ([C] bool: its padded cluster slots are never probed)
+    and `id_map` ([rcap] int32: b_ids, the shadow rows and `allowed` are
+    then indexed by local id, mapped to global ids after the rerank), as in
+    the JAX package."""
     prec = _prec(precision)
     qp = D.preprocess_queries(q, metric)
     b = qp.shape[0]
@@ -423,7 +428,10 @@ def ivf_search_impl(state: IVFState, q: torch.Tensor, k: int, nprobe: int, metri
     cs = D.pairwise_scores(qp, state.centroids, state.c_norms, metric, precision=prec)
     if c_mask is not None:
         cs = torch.where(c_mask[None, :], cs, _INF)
-    _, probes = T.smallest_k_dense(cs, p)                                   # [B, P]
+    if c >= 4096 and p * 4 <= c:   # JAX's guard for its hardware top-k
+        _, probes = AK.approx_min_k(cs, p)                                  # [B, P]
+    else:
+        _, probes = T.smallest_k_dense(cs, p)
     # filtered search widens each probe's pool so enough rows survive the allowlist
     kk = min((k * rerank if rerank else k) * max(filter_widen, 1), bcap)
     if use_pair_scan(c, b, p):
@@ -469,7 +477,10 @@ def _pair_scan(state: IVFState, qp, cs, probes, kk: int, metric: str, residual: 
     s = state.b_norms[pc] - 2.0 * dots if metric == "l2" else -dots
     bi = state.b_ids[pc]
     s = torch.where(bi >= 0, s, _INF)
-    ts, tpos = T.smallest_k_dense(s, kk)
+    if s.shape[1] >= 4 * kk:
+        ts, tpos = AK.approx_min_k(s, kk)
+    else:
+        ts, tpos = T.smallest_k_dense(s, kk)
     ti = torch.gather(bi, -1, tpos)
     ti = torch.where(torch.isfinite(ts), ti, -1)
     return ts.reshape(b, p * kk), ti.reshape(b, p * kk)

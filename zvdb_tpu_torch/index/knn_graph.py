@@ -18,8 +18,10 @@ Differences from the JAX package, by design:
     edges) come from one torch.Generator, which cannot reproduce JAX's PRNG:
     one seed builds a different graph in each package. The deterministic
     stages take their inputs as arguments and equal JAX's on equal inputs.
-  * sel="approx" is TPU hardware top-k (lax.approx_min_k), which PyTorch
-    lacks; it selects exactly here, as sel="exact" does.
+  * sel="approx" (JAX: lax.approx_min_k, the TPU's hardware top-k) runs
+    ops/approx_topk.py:approx_min_k when bcap >= 4 * kk, as JAX does: the
+    binned kernel on the card, the exact top-k on the CPU, as JAX's
+    approx_min_k there.
   * products take their precision by name (`precision`); JAX runs the build
     under an ambient jax.default_matmul_precision. As in JAX, sel="pallas"
     scores at "high" whatever the build's precision.
@@ -36,6 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import approx_topk as AK
 from ..ops import distance as D
 from ..ops import topk as T
 from ..ops.block_scan import block_bins
@@ -209,33 +212,16 @@ def _reps_chain_device(assign0: torch.Tensor, s0: torch.Tensor, c: int, reps: in
 # per-block brute-force kNN + candidate scatter
 
 
-def _fold_bins(s: torch.Tensor, l_bins: int):
-    """[..., W] scores -> ([..., L] minima, [..., L] columns m*L + l), the
-    strict < fold over m ascending (the lower column keeps a tie, and a bin
-    of only +inf keeps column l, as an argmin does); columns past W count as
-    +inf."""
-    col = torch.arange(l_bins, dtype=torch.int32, device=s.device)
-    best_s = s.new_full(s.shape[:-1] + (l_bins,), _INF)
-    best_c = col.expand(best_s.shape).clone()
-    for m0 in range(0, s.shape[-1], l_bins):
-        sm = s[..., m0:m0 + l_bins]
-        w = sm.shape[-1]
-        take = sm < best_s[..., :w]
-        best_s[..., :w] = torch.where(take, sm, best_s[..., :w])
-        best_c[..., :w] = torch.where(take, m0 + col[:w], best_c[..., :w])
-    return best_s, best_c
-
-
 def _block_knn_scatter(x, xn, block_pts, block_occ, occ_base: int, cand_s, cand_i, kc: int,
                        metric: str, sel: str = "exact", precision: Optional[str] = None):
     """One chunk of clusters: each block's rows scored against the block ->
     top-kc per row -> each slot's candidate list into its point's occurrence
     lane of cand_s / cand_i ([N+1, O, kc], row N = trash), IN PLACE.
 
-    sel: "exact" (top-kc, ties to the lower column), "approx" (the TPU's
-    hardware top-k; exact here), "binfold" (modular-bin minima, then a
-    (score, id) sort over the bins), "pallas" (the block scorer kernel at
-    "high", then the same sort). Returns (cand_s, cand_i)."""
+    sel: "exact" (top-kc, ties to the lower column), "approx" (approx_min_k
+    over each row when bcap >= 4 * kk, else exact), "binfold" (modular-bin
+    minima, then a (score, id) sort over the bins), "pallas" (the block
+    scorer kernel at "high", then the same sort). Returns (cand_s, cand_i)."""
     cc, bcap = block_pts.shape
     safe = block_pts.clamp(min=0).long()
     v = x[safe]                                          # [cc, B, D]
@@ -260,8 +246,12 @@ def _block_knn_scatter(x, xn, block_pts, block_occ, occ_base: int, cand_s, cand_
         del dots
         if sel == "binfold" and bcap >= 4 * kk:
             L = min(bcap, max(4 * kk, 32))
-            bin_s, col = _fold_bins(s, L)
+            bin_s, col = AK.fold_bins(s, L)
             ts, tp = T.sort_smallest_k(bin_s.reshape(cc * bcap, L), col.reshape(cc * bcap, L), kk)
+        elif sel == "approx" and bcap >= 4 * kk:
+            # candidate generation only: the views' union, the prune and the
+            # reverse pass absorb the few per-view misses, as in JAX
+            ts, tp = AK.approx_min_k(s, kk)
         else:
             ts, tp = T.smallest_k_dense(s, kk)
     ts = ts.reshape(cc, bcap, kk)

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import approx_topk as AK
 from ..ops import distance as D
 from ..ops import pq as PQ
 from ..ops import topk as T
@@ -97,12 +98,15 @@ def _ingest(state: PQState, x: torch.Tensor, metric: str, refine: str, packed: b
 
 
 def _pq_scan(state: PQState, qs: torch.Tensor, k: int, metric: str, tile_n: int,
-             precision: str, packed: bool):
+             precision: str, packed: bool, approx: bool = False, recall_target: float = 0.95):
     """Pass 1 without the kernel: decode each code tile, score it with one
     matmul at `precision`, keep its top-k, merge into the running top-k.
-    Any n_codes. The JAX version's approx=True uses lax.approx_min_k, which
-    PyTorch lacks; here the selection is always exact. Returns (surrogate
-    scores [B, k], ids [B, k]); invalid slots +inf / -1."""
+    Any n_codes. approx=True keeps each tile's k with ops/approx_topk.py:
+    approx_min_k at recall_target, as JAX's lax.approx_min_k (the binned
+    kernel on the card, the exact top-k on the CPU; a short last tile padded
+    with +inf to the tile's width, as JAX pads the codes); approx=False
+    selects exactly. Returns (surrogate scores [B, k], ids [B, k]); invalid
+    slots +inf / -1."""
     cap = state.norms.shape[0]
     tile = min(tile_n, cap)
     n_sub = state.codebooks.shape[0]
@@ -116,7 +120,12 @@ def _pq_scan(state: PQState, qs: torch.Tensor, k: int, metric: str, tile_n: int,
             codes = state.codes[t0:t0 + tile]
         xhat = PQ.decode(codes, state.codebooks)
         s = D.pairwise_scores(qs, xhat, state.norms[t0:t0 + tile], metric, precision=precision)
-        ts, tp = T.smallest_k_dense(s, min(k, s.shape[1]))
+        if approx:
+            if s.shape[1] < tile:
+                s = torch.nn.functional.pad(s, (0, tile - s.shape[1]), value=_INF)
+            ts, tp = AK.approx_min_k(s, min(k, tile), recall_target=recall_target)
+        else:
+            ts, tp = T.smallest_k_dense(s, min(k, s.shape[1]))
         ti = torch.where(torch.isfinite(ts), tp.to(torch.int32) + t0, -1)
         ts = torch.where(ti >= 0, ts, _INF)
         ts, ti = _pad_k(ts, ti, k)
@@ -141,7 +150,8 @@ def _pq_search(state: PQState, q: torch.Tensor, k: int, cfg: PQConfig, approx: b
             chunk=cfg.pallas_chunk, metric=metric, precision=cfg.scan_precision,
             per_bin=cfg.per_bin, seg_rows=cfg.seg_rows)
     else:
-        s1, i1 = _pq_scan(state, qr, kk, metric, cfg.tile_n, cfg.precision, cfg.packed)
+        s1, i1 = _pq_scan(state, qr, kk, metric, cfg.tile_n, cfg.precision, cfg.packed,
+                          approx=approx, recall_target=cfg.recall_target)
     if refine == "none":
         return _user_scores(s1, i1, qs, metric), i1
     safe = i1.clamp(min=0).long()

@@ -6,8 +6,10 @@ merged on the mesh's merge device (parallel/sharded.py:run_shards). There
 is no cross-shard traffic until that merge. As in JAX, the queries are not
 split over a data axis: every shard scores the whole batch.
 
-As in the single-chip FlatIndex of the port, `approx=True` selects exactly
-(PyTorch has no approx_min_k), so its recall is at least the reference's.
+As in JAX, `approx=True` selects each shard's candidates with
+ops/approx_topk.py:approx_min_k at cfg.recall_target (the binned kernel on
+the card, the exact top-k on the CPU, as JAX's approx_min_k there); the
+merge and `search_range` select exactly.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..index.flat import tensor_from_numpy
+from ..ops import approx_topk as AK
 from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.config import FlatConfig
@@ -304,8 +307,9 @@ class ShardedFlat:
         """Top-k over every shard: (scores [B, k], global ids [B, k]) on the
         mesh's merge device. allowed: optional allowlist over global ids
         (bool mask or id array): filtered search, exact at any selectivity
-        (one validity-bias mask over the full scan). approx selects exactly
-        either way."""
+        (one validity-bias mask over the full scan). approx=True selects
+        each shard's k with approx_min_k at cfg.recall_target, approx=False
+        exactly; the merge is exact."""
         from ..utils.masks import allowed_mask
 
         self._flush()
@@ -322,7 +326,13 @@ class ShardedFlat:
 
         def local(si, v, nn, ii, qs):
             _, s = self._shard_scores(v, nn, ii, qs)
-            ts, ti = T.smallest_k(s, ii[None, :].expand(s.shape), min(k, s.shape[-1]))
+            kk = min(k, s.shape[-1])
+            if approx:
+                tv, tp = AK.approx_min_k(s, kk, recall_target=self.cfg.recall_target)
+                ti = ii[tp]
+                ts = torch.where(ti >= 0, tv, _INF)
+            else:
+                ts, ti = T.smallest_k(s, ii[None, :].expand(s.shape), kk)
             # a tombstoned row carries a live-looking id but an inf score:
             # it never surfaces when fewer than k finite candidates exist
             return ts, torch.where(torch.isfinite(ts), ti, -1)

@@ -28,8 +28,9 @@ half of JAX's code bytes.
 Differences from the JAX package, by design: the codebooks train on JAX's
 numpy sample with the port's trainers (ops/pq.py) seeded by a
 torch.Generator, so one seed gives other codebooks (`from_numpy` and `load`
-carry a JAX-built index across); approx=True without the kernel selects
-exactly (PyTorch has no approx_min_k).
+carry a JAX-built index across). approx=True without the kernel runs the
+decode scan through ops/approx_topk.py:approx_min_k, as JAX's does through
+lax.approx_min_k.
 """
 from __future__ import annotations
 
@@ -468,7 +469,8 @@ class ShardedPQFlat:
             else:   # the decode scan of qr: the state's rotation is not read
                 st = PQState(codes=c, norms=nn, codebooks=cb, rot=self.rot, refine=rv,
                              r_scales=rs, n=nn.shape[0])
-                ps, pi = _pq_scan(st, qr, pool, metric, cfg.tile_n, cfg.precision, cfg.packed)
+                ps, pi = _pq_scan(st, qr, pool, metric, cfg.tile_n, cfg.precision, cfg.packed,
+                                  approx=approx, recall_target=cfg.recall_target)
             safe = pi.clamp(min=0).long()
             if cfg.refine != "none":
                 cand = rv[safe].float()

@@ -62,8 +62,9 @@ class HNSWConfig:
     upper_beam: bool = False
     # One-shot build knobs (knn_graph.build_knn_graph): candidates per
     # clustering view, the merged-pool cap entering the prune, the per-block
-    # top-k ("approx" is TPU hardware top-k, exact here; "exact"; "binfold";
-    # "pallas": the block scorer kernel) and the Lloyd iterations.
+    # top-k ("approx": ops/approx_topk.py:approx_min_k, the binned kernel on
+    # the card and exact on the CPU; "exact"; "binfold"; "pallas": the block
+    # scorer kernel) and the Lloyd iterations.
     kc_per_view: int = 16
     prune_cap: int = 64
     block_topk: str = "approx"
@@ -125,8 +126,9 @@ class FlatConfig:
     # Matmul precision for scoring: "highest" (plain f32, the exact oracle),
     # "high" (bf16x3 hi/lo split), "default" (bf16-rounded inputs, f32 sums).
     precision: str = "highest"
-    # Kept for save-file parity; the port's approximate path selects exactly,
-    # so its selection recall is 1 whatever this says.
+    # Selection recall target of search(approx=True)'s tiled scan: sets the
+    # bin count of ops/approx_topk.py:approx_min_k, as of JAX's
+    # lax.approx_min_k (on the CPU the selection is exact, as JAX's there).
     recall_target: float = 0.95
     # Approximate-scan implementation for search(approx=True). The values are
     # the JAX package's, since they are persisted in save files:
@@ -190,7 +192,8 @@ class PQConfig:
     tile_n: int = 16384
     # Matmul precision of the decode scan ("highest" | "high" | "default").
     precision: str = "high"
-    # Kept for save-file parity; the port's decode scan selects exactly.
+    # Selection recall target of the decode scan under search(approx=True):
+    # the bin count of ops/approx_topk.py:approx_min_k (exact on the CPU).
     recall_target: float = 0.95
     # Refine store for the exact rerank pass: "int16" (2D+4 bytes per vector,
     # per-vector symmetric at +-32767 levels), "bfloat16" (2D), "float32"
