@@ -1137,7 +1137,9 @@ def profile_search(ctx: Ctx, index, q1, batches: int = 3, label: str = "pq_1m",
 def profile_calls(ctx: Ctx, label: str, calls, unit: str):
     """torch.profiler over `calls`, run in turn in a window that ends in a
     sync: kernel time by name, and the device's busy share of the window
-    (the union of kernel intervals over the host wall time)."""
+    (the union of kernel intervals over the host wall time). Returns
+    {kernel name: (device us, launches)} over the calls, or None when the
+    trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1150,7 +1152,7 @@ def profile_calls(ctx: Ctx, label: str, calls, unit: str):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         ctx.report(label, "no device time in the trace: not measured")
-        return
+        return None
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         busy += max(0.0, b - max(a, end))
@@ -1164,6 +1166,7 @@ def profile_calls(ctx: Ctx, label: str, calls, unit: str):
                f"({100 * busy / wall_us:.1f}%), {len(kernels) // n} kernels/{unit}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / 1e3 / n:9.3f} ms/{unit}  {c / n:5.1f}x/{unit}  {name[:90]}")
+    return by_name
 
 
 def phase_pq_times(ctx: Ctx, idx, q1, lut):
@@ -4880,6 +4883,23 @@ APPROX_GRID = [((6, 1000), 10, 0.95), ((5, 1027), 7, 0.9), ((3, 5, 700), 16, 0.9
                ((7, 300), 300, 0.95), ((2, 4096), 1, 0.95), ((6, 1000), 128, 0.5),
                ((4, 100), 100, 0.95), ((16, 1 << 20), 10, 0.95), ((1, 3_000_000), 100, 0.99),
                ((300, 2456), 40, 0.95), ((4, 250_000), 256, 0.95), ((64, 2_048), 40, 0.95)]
+# (rows of _approx_rows, shape, k, recall_target), also the CPU tests' cases
+# for the kernel's algorithm: L from reduction_output_size; 2048 rows and
+# more take one split; the k-th key's value shared past k, so the column
+# decides (in the lanes' bound or the column digits); +-0.0 only; k = 1;
+# k = L; k > 256
+APPROX_TIE_GRID = [
+    ("column ties", (2048, 300), 10, 0.95),      # L = N = 300, the lanes' bound
+    ("column ties", (3, 1000), 100, 0.5),        # L = 256, the split route, column digits
+    ("column ties", (2048, 1300), 300, 0.5),     # L = 768, 64 threads a row
+    ("zeros", (2048, 260), 40, 0.95),            # L = N = 260, column digits
+    ("zeros", (2, 2000), 7, 0.95),               # L = 256, the split route
+    ("ties", (2048, 1500), 1, 0.95),             # L = 128
+    ("ties", (2048, 300), 300, 0.95),            # k = L = N
+    ("ties", (3, 512), 512, 0.95),               # k = L = N, one window
+    ("normal", (2048, 5000), 300, 0.5),          # L = 640
+    ("normal", (2048, 2000), 10, 0.5),           # L = 256, the lanes' bound
+]
 # the sites' operands at the main paths' sizes: (label, shape, k, recall_target)
 APPROX_SITES_AT_SIZE = [
     ("flat row tile", (10_000, 100_000), 10, 0.97),
@@ -4891,6 +4911,16 @@ APPROX_SITES_AT_SIZE = [
     ("knn_graph block chunk (cagra_1m build)", (12, 1640, 1640), 16, 0.95),
     ("PQ decode-scan tile (rerank 12)", (2048, 16_384), 120, 0.95),
 ]
+
+
+# the kernel's times at the site operands before its redesign, from
+# PERF.md's row H (its first run; its final call)
+OLD_H_MS = {"flat row tile": "1.6046-1.6065; 1.6043-1.6047",
+            "flat_1m first-pass tile": "1.750; 1.7475", "sharded_flat_1m shard": "0.7745; 0.7672",
+            "cagra_1m seed anchors": "0.8041; 0.8012", "IVF probes at C = 4096": "0.0697; 0.0548",
+            "ivf_1m pair-scan cut (B*P x cap)": "0.1116; 0.1104",
+            "knn_graph block chunk (cagra_1m build)": "0.4677; 0.4648",
+            "PQ decode-scan tile (rerank 12)": "0.5988; 0.595"}
 
 
 def _approx_tie_rows(shape, seed):
@@ -4905,14 +4935,29 @@ def _approx_tie_rows(shape, seed):
     return s
 
 
-def approx_case(ctx: Ctx, label: str, s, k: int, r: float) -> float:
-    """The kernel (on a CPU rehearsal: the CPU branch) against its plain
-    version on s: positions equal and values equal bit for bit on the card.
-    Returns the largest |value difference| (0.0 when equal)."""
+def _approx_rows(kind, shape, seed):
+    """APPROX_TIE_GRID's rows: "column ties" mostly 1.0 (the rest 2.0 or
+    +inf), "zeros" only -0.0 and +0.0, "ties" _approx_tie_rows, "normal"
+    standard normal."""
+    rng = np.random.default_rng(seed)
+    if kind == "column ties":
+        return rng.choice(np.float32([1.0, 1.0, 1.0, 2.0, np.inf]), size=shape).astype(np.float32)
+    if kind == "zeros":
+        return np.where(rng.random(shape) < 0.5, np.float32(-0.0), np.float32(0.0))
+    if kind == "ties":
+        return _approx_tie_rows(shape, seed)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def approx_case(ctx: Ctx, label: str, s, k: int, r: float, run=None) -> float:
+    """The kernel through its wrapper (on a CPU rehearsal: the CPU branch),
+    or `run()` (an `approx_entry_call`), against its plain version on s:
+    positions equal and values equal bit for bit on the card. Returns the
+    largest |value difference| (0.0 when equal)."""
     from zvdb_tpu_torch.ops import approx_topk as AK
 
     L = AK.reduction_output_size(s.shape[-1], s.dim(), k, r)
-    v, p = AK.approx_min_k(s, k, recall_target=r)
+    v, p = run() if run else AK.approx_min_k(s, k, recall_target=r)
     pv, pp = AK._approx_min_k_plain(s, k, L)
     ctx.sync()
     fin = torch.isfinite(pv)
@@ -4920,33 +4965,92 @@ def approx_case(ctx: Ctx, label: str, s, k: int, r: float) -> float:
     equal = torch.equal(p, pp) and torch.equal(v.view(torch.int32), pv.view(torch.int32))
     rows = s.numel() // s.shape[-1]
     splits = AK.fold_splits(rows, -(-s.shape[-1] // L))[0]
-    print(f"  approx {label} {tuple(s.shape)} k={k} r={r}: L={L}, splits {splits}, "
+    print(f"  approx {label} {tuple(s.shape)} k={k} r={r}: L={L}, splits {splits} "
+          f"({'one launch' if splits == 1 else 'split route'}), "
           f"{'equal bit for bit' if equal else 'DIFFER'}", flush=True)
     if not ctx.rehearse and not equal:
         raise AssertionError(f"approx_min_k {label}: the kernel differs from its plain version")
     return err
 
 
+def approx_entry_call(s, k: int, r: float, fn=None):
+    """A call of the kernel's C entry point `fn` (the package's build by
+    default) on s, its outputs (and a split route's scratch) made
+    beforehand; returns (values, positions) shaped as the wrapper's."""
+    from zvdb_tpu_torch.ops import approx_topk as AK
+
+    n = s.shape[-1]
+    rows = s.numel() // n
+    L = AK.reduction_output_size(n, s.dim(), k, r)
+    splits, per = AK.fold_splits(rows, -(-n // L))
+    vals = s.new_empty((*s.shape[:-1], k))
+    pos = s.new_empty((*s.shape[:-1], k), dtype=torch.int64)
+    part = s.new_empty((rows, splits, L), dtype=torch.int64) if splits > 1 else None
+    fn = fn or AK.build()
+    args = (s.data_ptr(), None if part is None else part.data_ptr(), vals.data_ptr(),
+            pos.data_ptr(), rows, n, L, k, splits, per, torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        if fn(*args) != 0:
+            raise RuntimeError("approx_min_k entry point failed")
+        return vals, pos
+
+    return call
+
+
+def approx_entry_ms(ctx: Ctx, s, k: int, r: float, reps: int = 20, fn=None):
+    """ms a call of the kernel's C entry point alone (CUDA events around
+    `reps` ctypes calls, `approx_entry_call`): the device's pace where the
+    wrapper's host work would set it. None when rehearsing."""
+    if ctx.rehearse:
+        return None
+    return ctx.time_ms(approx_entry_call(s, k, r, fn), reps=reps, warmup=2)
+
+
 def approx_times(ctx: Ctx, label: str, s, k: int, r: float, reps: int = 20) -> dict:
-    """ms a call of the kernel, its plain version, torch.topk(largest=False)
-    and ops/topk.py:smallest_k_dense (the sites' exact selection) on s, and
-    the bound: s read once and the k (value, position) pairs written, at the
-    card's memory rate."""
+    """ms a call of the kernel through its wrapper and through its entry
+    point alone, its plain version, torch.topk(largest=False) and
+    ops/topk.py:smallest_k_dense (the sites' exact selection) on s, the
+    bound (s read once and the k (value, position) pairs written, at the
+    card's memory rate) and each time's share of it; the route and the
+    launches a call; a profile of 5 calls (kernels a call, device ms),
+    which must hold no kernel but approx_fused_kernel, at most one a call
+    (the profiler may drop some of these ctypes launches, never add one)."""
     from zvdb_tpu_torch.ops import approx_topk as AK
     from zvdb_tpu_torch.ops import topk as T
 
     L = AK.reduction_output_size(s.shape[-1], s.dim(), k, r)
     rows = s.numel() // s.shape[-1]
+    splits = AK.fold_splits(rows, -(-s.shape[-1] // L))[0]
     few = max(1, reps // 10)
+    before = AK.approx_min_k.launches
+    AK.approx_min_k(s, k, recall_target=r)
+    launches = AK.approx_min_k.launches - before
     out = dict(
         ms=ctx.time_ms(lambda: AK.approx_min_k(s, k, recall_target=r), reps=reps, warmup=2),
+        entry_ms=approx_entry_ms(ctx, s, k, r, reps=reps),
         plain_ms=ctx.time_ms(lambda: AK._approx_min_k_plain(s, k, L), reps=few),
         library_ms=ctx.time_ms(lambda: torch.topk(s, k, dim=-1, largest=False), reps=few),
         smallest_k_dense_ms=ctx.time_ms(lambda: T.smallest_k_dense(s, k), reps=few),
         bound_ms=(s.numel() * 4 + rows * k * 12) / HBM_BYTES_S * 1e3, bound_by="bytes")
-    ctx.report(f"approx {label} {tuple(s.shape)} k={k} L={L} ms (kernel, plain, torch.topk, "
-               "smallest_k_dense; byte bound)",
+    ctx.report(f"approx {label} {tuple(s.shape)} k={k} L={L} ms (kernel through the wrapper, "
+               "its entry point alone, plain, torch.topk, smallest_k_dense; byte bound)",
                {key: (round(v, 4) if isinstance(v, float) else v) for key, v in out.items()})
+    shares = {key: f"{out['bound_ms'] / out[key]:.1%}" for key in ("ms", "entry_ms")
+              if out[key]}
+    ctx.report(f"approx {label} route, launches a call, share of the byte bound (wrapper, "
+               "entry point alone)", f"{'one launch' if splits == 1 else 'split route'} "
+               f"(splits {splits}), {launches}, {shares or 'not measured (rehearsal)'}")
+    if not ctx.rehearse and launches != 1:
+        raise AssertionError(f"approx {label}: {launches} launches counted for one call")
+    if not ctx.rehearse:
+        by_name = profile_calls(ctx, f"approx {label} profile (5 calls through the wrapper)",
+                                [lambda: AK.approx_min_k(s, k, recall_target=r)] * 5, "call")
+        names = {name: c for name, (_, c) in (by_name or {}).items()}
+        if any("approx_fused_kernel" not in name for name in names) \
+                or sum(names.values()) > 5:
+            raise AssertionError(f"approx {label}: 5 calls ran the kernels {names}, not one "
+                                 "approx_fused_kernel a call")
     return out
 
 
@@ -4970,6 +5074,9 @@ def phase_approx(ctx: Ctx, x1, q1, gt):
         if ctx.rehearse and math.prod(shape) > 2_000_000:
             continue
         approx_case(ctx, "grid", torch.from_numpy(_approx_tie_rows(shape, i)).to(dev), k, r)
+    for kind, shape, k, r in APPROX_TIE_GRID:
+        approx_case(ctx, f"grid {kind}", torch.from_numpy(_approx_rows(kind, shape, k)).to(dev),
+                    k, r)
     gen = torch.Generator(device=dev).manual_seed(40)
     site_ms = {}
     for label, shape, k, r in APPROX_SITES_AT_SIZE:
@@ -4982,6 +5089,12 @@ def phase_approx(ctx: Ctx, x1, q1, gt):
         del s
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    for label, t in site_ms.items():
+        ctx.report(f"approx {label} ms through the wrapper / entry point alone / byte bound / "
+                   "torch.topk; the kernel before its redesign (PERF.md row H)",
+                   f"{t['ms']:.4f} / " + ("not measured" if t["entry_ms"] is None else
+                                          f"{t['entry_ms']:.4f}")
+                   + f" / {t['bound_ms']:.4f} / {t['library_ms']:.4f}; {OLD_H_MS[label]}")
 
     # the main path: bench.py's flat row at full width
     n = min(100_000, ctx.n)

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
 from zvdb_tpu_torch.ops import approx_topk as AK
 from zvdb_tpu_torch.ops import topk as T
 
@@ -88,35 +89,100 @@ def _numpy_binfold(s, k, l_bins):
     return out_v.reshape(*lead, k), out_c.reshape(*lead, k)
 
 
+def _keys(best, col):
+    """The kernel's 64-bit keys: ordered bits of the value (-0.0 read as
+    +0.0) << 32 | column."""
+    bits = np.where(best == 0, np.float32(0.0), best).view(np.uint32)
+    bits = np.where(bits & 0x80000000, ~bits, bits | 0x80000000).astype(np.uint64)
+    return (bits << np.uint64(32)) | col.astype(np.uint64)
+
+
+def _fold_keys(flat, l_bins, first, cend):
+    """fold_bins: each bin b walks its columns first + b + j*L < cend with a
+    strict <, in batches of 8 windows, the last batch masked with +inf."""
+    rows = flat.shape[0]
+    col0 = first + np.arange(l_bins, dtype=np.int64)
+    best = np.full((rows, l_bins), np.inf, np.float32)
+    col = np.broadcast_to(col0, (rows, l_bins)).copy()
+    for c in range(first, cend, l_bins):
+        cols = c - first + col0
+        v = np.where(cols < cend, flat[:, np.minimum(cols, cend - 1)], np.float32(np.inf))
+        take = v < best
+        best = np.where(take, v, best)
+        col = np.where(take, cols, col)
+    return _keys(best, col)
+
+
+def _row_threads(l_bins, windows):
+    """csrc/approx_topk.cu:row_threads: 256 for a long row, else the fewest
+    of 32, 64, 128, 256 that leave a thread at most 16 bins."""
+    if windows >= 32:
+        return 256
+    g = 32
+    while g < 256 and g * 16 < l_bins:
+        g *= 2
+    return g
+
+
+def _select_row(keys, k, threads):
+    """select_row on one row's distinct keys. With a warp a row and k <= 32,
+    the bound is first the k-th smallest of the 32 lanes' minima (lane i
+    owns keys i, i + 32, ...), taken when at most sort_max = max(next_pow2(k),
+    64) keys lie at or below it. Else the radix select: 8-bit digits from the
+    top, a histogram of the digit over the keys still in the k-th key's
+    bucket, until that bucket holds exactly the keys still needed or the keys
+    up to the end of the bucket are at most sort_max. The keys at or below
+    the bound are compacted and sorted, and the first k kept. Returns (the k
+    keys, radix passes: 0 where the lanes' bound was taken)."""
+    sort_max = max(64, 1 << (k - 1).bit_length())
+    if threads == 32 and k <= 32:
+        mins = [keys[i::32].min() if i < keys.size else np.iinfo(np.uint64).max
+                for i in range(32)]
+        t = np.sort(np.array(mins, np.uint64))[k - 1]
+        if (keys <= t).sum() <= sort_max:
+            return np.sort(keys[keys <= t])[:k], 0
+    thr, need, shift, passes = 0, k, 64, 0
+    while True:
+        low = shift - 8
+        hi = 0 if shift == 64 else ((1 << 64) - 1) ^ ((1 << shift) - 1)
+        live = (keys ^ np.uint64(thr)) & np.uint64(hi) == 0
+        hist = np.bincount(((keys[live] >> np.uint64(low)) & np.uint64(255)).astype(np.int64),
+                           minlength=256)
+        cum = np.cumsum(hist)
+        d = int(np.searchsorted(cum, need))            # the first bucket with cum >= need
+        below = int(cum[d] - hist[d])
+        thr |= d << low
+        need -= below
+        shift, passes = low, passes + 1
+        if hist[d] == need or k + hist[d] - need <= sort_max or low == 0:
+            break
+    chosen = keys[keys <= np.uint64(thr | ((1 << shift) - 1))]
+    assert chosen.size == k + hist[d] - need <= sort_max
+    return np.sort(chosen)[:k], passes
+
+
 def _kernel_emulation(s, k, l_bins):
-    """csrc/approx_topk.cu's algorithm in numpy: each split of windows folds
-    its bins with a strict < into 64-bit keys (ordered bits of the value,
-    -0.0 read as +0.0, << 32 | column), the splits merge by a min, the keys
-    sort, and each value is read back from s at its column."""
+    """csrc/approx_topk.cu's algorithm in numpy. The route is
+    `fold_splits`'s: one split folds a row's windows into its keys (the
+    one-launch route); several fold apart and merge by a min (the split
+    route). Then select_row's bound (the lanes' minima or the radix
+    select), compaction and sort, and each value read back from s at its
+    column. Returns (values, positions, splits, the most radix passes a row
+    took)."""
     n = s.shape[-1]
     flat = s.reshape(-1, n)
     rows = flat.shape[0]
     windows = -(-n // l_bins)
     splits, per = AK.fold_splits(rows, windows)
     assert (splits - 1) * per < windows <= splits * per
-    keys = np.full((rows, splits, l_bins), np.iinfo(np.uint64).max, np.uint64)
-    for sp in range(splits):
-        cend = min((sp + 1) * per * l_bins, n)
-        for b in range(l_bins):
-            c0 = sp * per * l_bins + b
-            best = np.full(rows, np.inf, np.float32)
-            col = np.full(rows, c0, np.int64)
-            for c in range(c0, cend, l_bins):
-                take = flat[:, c] < best
-                best = np.where(take, flat[:, c], best)
-                col = np.where(take, c, col)
-            bits = np.where(best == 0, np.float32(0.0), best).view(np.uint32)
-            bits = np.where(bits & 0x80000000, ~bits, bits | 0x80000000).astype(np.uint64)
-            keys[:, sp, b] = (bits << np.uint64(32)) | col.astype(np.uint64)
-    merged = np.sort(keys.min(axis=1), axis=1)[:, :k]
-    pos = (merged & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    keys = np.stack([_fold_keys(flat, l_bins, sp * per * l_bins, min((sp + 1) * per * l_bins, n))
+                     for sp in range(splits)]).min(axis=0)
+    out = [_select_row(row, k, _row_threads(l_bins, windows)) for row in keys]
+    chosen = np.stack([o[0] for o in out])
+    pos = (chosen & np.uint64(0xFFFFFFFF)).astype(np.int64)
     vals = np.take_along_axis(flat, pos, axis=1)
-    return vals.reshape(*s.shape[:-1], k), pos.reshape(*s.shape[:-1], k)
+    return (vals.reshape(*s.shape[:-1], k), pos.reshape(*s.shape[:-1], k), splits,
+            max(o[1] for o in out))
 
 
 def _tie_rows(shape, seed, zeros=True, inf_rows=True):
@@ -166,14 +232,38 @@ def test_plain_keeps_the_sign_of_a_winning_zero():
     assert [np.signbit(x) for x in v[0].numpy()] == [True, False]
 
 
+def _assert_emulation_is_plain(s, k, l_bins):
+    want_v, want_p = AK._approx_min_k_plain(torch.from_numpy(s), k, l_bins)
+    got_v, got_p, splits, passes = _kernel_emulation(s, k, l_bins)
+    np.testing.assert_array_equal(got_p, want_p.numpy())
+    np.testing.assert_array_equal(got_v.view(np.uint32), want_v.numpy().view(np.uint32))
+    return splits, passes
+
+
 @pytest.mark.parametrize("shape,k,l_bins", [((3, 1000), 10, 128), ((2, 3, 600), 16, 128),
                                             ((2, 5000), 40, 256), ((4, 100), 10, 100)])
 def test_kernel_algorithm_matches_plain(shape, k, l_bins):
-    s = _tie_rows(shape, seed=l_bins)
-    want_v, want_p = AK._approx_min_k_plain(torch.from_numpy(s), k, l_bins)
-    got_v, got_p = _kernel_emulation(s, k, l_bins)
-    np.testing.assert_array_equal(got_p, want_p.numpy())
-    np.testing.assert_array_equal(got_v.view(np.uint32), want_v.numpy().view(np.uint32))
+    splits, _ = _assert_emulation_is_plain(_tie_rows(shape, seed=l_bins), k, l_bins)
+    assert (splits > 1) == (shape[-1] > l_bins)      # few rows: the split route
+
+
+# the tie-heavy rows and their cases are chip_smoke.py phase 40's (it
+# imports neither JAX nor the JAX package): "column ties" rows whose bins
+# mostly tie at 1.0, so the column digits decide, "zeros" rows of only
+# -0.0 and +0.0, "ties" _tie_rows, "normal" standard normal
+_rows_of = CS._approx_rows
+EMULATION_CASES = CS.APPROX_TIE_GRID
+
+
+@pytest.mark.parametrize("rows,shape,k,r", EMULATION_CASES)
+def test_kernel_algorithm_on_tie_heavy_rows(rows, shape, k, r):
+    l_bins = AK.reduction_output_size(shape[-1], 2, k, r)
+    splits, passes = _assert_emulation_is_plain(_rows_of(rows, shape, k), k, l_bins)
+    assert (splits == 1) == (shape[0] >= 2048 or shape[-1] <= l_bins)
+    if rows in ("column ties", "zeros") and k > 32:   # the value's 4 digits leave a tie
+        assert passes > 4
+    if rows == "normal" and k <= 32:                   # a warp a row: the lanes' bound
+        assert _row_threads(l_bins, -(-shape[-1] // l_bins)) == 32 and passes == 0
 
 
 def test_fold_splits_fill_the_card_for_few_rows():
@@ -181,6 +271,22 @@ def test_fold_splits_fill_the_card_for_few_rows():
     splits, per = AK.fold_splits(16, 7813)
     assert splits * 16 >= 2000 and (splits - 1) * per < 7813 <= splits * per
     assert AK.fold_splits(1, 3) == (3, 1)
+
+
+# the sites' operands at the main paths' sizes (chip_smoke.py phase 40)
+SITE_SHAPES_AT_SIZE = [(shape, k, r) for _, shape, k, r in CS.APPROX_SITES_AT_SIZE]
+
+
+@pytest.mark.parametrize("shape,k,r,splits", [(s, k, r, 1) for s, k, r in SITE_SHAPES_AT_SIZE] +
+                         [((16, 1 << 20), 10, 0.95, 128), ((1, 3_000_000), 100, 0.99, None)])
+def test_route_by_shape(shape, k, r, splits):
+    """Every site operand takes the one-launch route (one split); the test
+    grid's few long rows take the split route."""
+    n, rows = shape[-1], int(np.prod(shape[:-1]))
+    l_bins = AK.reduction_output_size(n, len(shape), k, r)
+    got, per = AK.fold_splits(rows, -(-n // l_bins))
+    assert got == splits if splits else got > 1
+    assert (got - 1) * per < -(-n // l_bins) <= got * per
 
 
 @pytest.mark.parametrize("n,k", [(50, 10), (128, 128), (300, 7), (1000, 40)])
@@ -344,7 +450,10 @@ def cuda_device():
 GPU_CASES = [(s, k, r) for s, k, r in SITE_SHAPES] + [
     ((6, 1000), 10, 0.95), ((5, 1027), 7, 0.9), ((3, 5, 700), 16, 0.95), ((7, 300), 300, 0.95),
     ((2, 4096), 1, 0.95), ((6, 1000), 128, 0.5), ((16, 1 << 20), 10, 0.95),
-    ((1, 3_000_000), 100, 0.99), ((300, 2456), 40, 0.95), ((4, 250_000), 256, 0.95)]
+    ((1, 3_000_000), 100, 0.99), ((300, 2456), 40, 0.95), ((4, 250_000), 256, 0.95),
+    # the four short-row site operands at full size (one launch each)
+    ((2048, 16_384), 120, 0.95), ((12, 1640, 1640), 16, 0.95), ((4096, 2456), 10, 0.95),
+    ((2048, 4096), 8, 0.95)]
 
 
 @pytest.mark.gpu
@@ -357,6 +466,16 @@ def test_kernel_matches_plain_on_gpu(cuda_device, shape, k, r):
     torch.cuda.synchronize()
     assert AK.approx_min_k.launches == before + 1
     pv, pp = AK._approx_min_k_plain(s, k, l_bins)
+    assert torch.equal(p, pp)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,shape,k,r", EMULATION_CASES)
+def test_kernel_on_tie_heavy_rows_on_gpu(cuda_device, rows, shape, k, r):
+    s = torch.from_numpy(_rows_of(rows, shape, k)).to(cuda_device)
+    v, p = AK.approx_min_k(s, k, recall_target=r)
+    pv, pp = AK._approx_min_k_plain(s, k, AK.reduction_output_size(shape[-1], 2, k, r))
     assert torch.equal(p, pp)
     assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
 

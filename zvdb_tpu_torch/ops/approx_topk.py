@@ -32,6 +32,7 @@ function in plain PyTorch, which the tests and chip_smoke.py hold it to.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import struct
 
@@ -42,8 +43,7 @@ from . import topk as T
 
 _INF = float("inf")
 # The kernel's largest L (csrc/approx_topk.cu checks it too): its select
-# stage sorts a row's bins in shared memory, 8 bytes a bin padded to a power
-# of two (128 KB at 16384).
+# stage holds a row's bins in shared memory, 8 bytes a bin (128 KB at 16384).
 MAX_BINS = 16384
 # Blocks the fold aims to start: rows times splits of each row's windows.
 _FOLD_BLOCKS = 2048
@@ -52,12 +52,14 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_void_p]
 build_info: dict = {}   # approx_topk.cu: path, seconds, ptxas report of this process's build
+_entry = None           # the loaded entry point, once `build` has run
 
 
 def _log2_ceil(x: int) -> int:
     return (x - 1).bit_length()
 
 
+@functools.lru_cache(maxsize=1024)
 def reduction_output_size(n: int, rank: int, k: int, recall_target: float) -> int:
     """L, the number of bins approx_min_k reduces a row of n columns to, for
     an operand of `rank` dimensions: XLA's rule, which JAX reports as the
@@ -120,15 +122,19 @@ def _approx_min_k_plain(s: torch.Tensor, k: int, l_bins: int):
 
 def build():
     """Compile csrc/approx_topk.cu, load it and return its entry point."""
+    global _entry
     fn, info = cuda_build.load("approx_topk.cu", "zvdb_approx_min_k", _ARGTYPES)
     build_info.update(info)
+    _entry = fn
     return fn
 
 
 def fold_splits(rows: int, windows: int) -> tuple[int, int]:
     """(splits, windows per split): each row's windows are cut into splits
     folded by blocks of their own, so that few long rows still start
-    about _FOLD_BLOCKS blocks."""
+    about _FOLD_BLOCKS blocks. One split (any row count from _FOLD_BLOCKS
+    up) is the kernel's one-launch route; more take its split route: a fold
+    launch into a [rows, splits, L] scratch, then the select."""
     splits = min(windows, max(1, -(-_FOLD_BLOCKS // max(rows, 1))), 65535)
     per = -(-windows // splits)
     return -(-windows // per), per
@@ -141,14 +147,15 @@ def approx_min_k(s: torch.Tensor, k: int, recall_target: float = 0.95):
     `reduction_output_size` with the operand's rank.
 
     On a CUDA tensor: the kernel (the bin fold and the exact top-k of the
-    bins, `_approx_min_k_plain`'s function bit for bit); raises ValueError
+    bins, `_approx_min_k_plain`'s function bit for bit; one launch unless
+    `fold_splits` cuts the rows' windows); raises ValueError
     when L exceeds MAX_BINS. On a CPU tensor: the exact top-k, as JAX's
     approx_min_k on the CPU."""
     n = s.shape[-1]
     l_bins = reduction_output_size(n, s.dim(), k, recall_target)
-    if s.device.type == "cpu":
-        return T.smallest_k_dense(s, k)
-    if s.device.type != "cuda":
+    if not s.is_cuda:
+        if s.device.type == "cpu":
+            return T.smallest_k_dense(s, k)
         raise ValueError(f"approx_min_k: s must lie on a CUDA device or the CPU, not {s.device}")
     if s.dtype != torch.float32:
         raise TypeError(f"approx_min_k: s must be float32, got {s.dtype}")
@@ -159,26 +166,36 @@ def approx_min_k(s: torch.Tensor, k: int, recall_target: float = 0.95):
                          f"(N={n}, k={k}, recall_target={recall_target})")
     if n >= 2**31:
         raise ValueError(f"approx_min_k: the last axis ({n}) must be below 2^31")
+    dev = s.get_device()
+    if dev == torch.cuda.current_device():
+        return _launch(s, k, l_bins, dev)
+    with torch.cuda.device(dev):
+        return _launch(s, k, l_bins, dev)
+
+
+def _launch(s: torch.Tensor, k: int, l_bins: int, dev: int):
+    """approx_min_k's kernel launch on s's device `dev`, the current one, on
+    its current stream."""
+    n = s.shape[-1]
     lead = s.shape[:-1]
     rows = lead.numel()
-    vals = torch.empty((rows, k), dtype=torch.float32, device=s.device)
-    pos = torch.empty((rows, k), dtype=torch.int64, device=s.device)
+    vals = s.new_empty((*lead, k))
+    pos = s.new_empty((*lead, k), dtype=torch.int64)
     if rows == 0:
-        return vals.reshape(*lead, k), pos.reshape(*lead, k)
+        return vals, pos
     if rows >= 2**31:
         raise ValueError(f"approx_min_k: {rows} rows exceed the grid")
     s = s.contiguous()
     splits, per = fold_splits(rows, -(-n // l_bins))
-    part = torch.empty((rows, splits, l_bins), dtype=torch.int64, device=s.device)
-    kernel = build()
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
-        rc = kernel(s.data_ptr(), part.data_ptr(), vals.data_ptr(), pos.data_ptr(), rows, n,
-                    l_bins, k, splits, per, stream)
+    part = None if splits == 1 else torch.empty((rows, splits, l_bins), dtype=torch.int64,
+                                                device=s.device)
+    rc = (_entry or build())(s.data_ptr(), None if part is None else part.data_ptr(),
+                             vals.data_ptr(), pos.data_ptr(), rows, n, l_bins, k, splits, per,
+                             torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"approx_min_k: kernel launch failed with CUDA error {rc}")
     approx_min_k.launches += 1
-    return vals.reshape(*lead, k), pos.reshape(*lead, k)
+    return vals, pos
 
 
 approx_min_k.launches = 0   # every launch of the kernel
