@@ -3783,9 +3783,9 @@ def phase_sharded_flat(ctx: Ctx, x1, q1, gt):
 
 
 def trace_split(ctx: Ctx, label: str, call):
-    """`call` once under utils/profiling.trace: each "zvdb ..." span's wall
-    ms (shard s, merge) and the device's busy ms inside it, from the Chrome
-    trace the profiler writes; the file is deleted after."""
+    """`call` once under utils/profiling.trace: each "zvdb shard <s>" and
+    "zvdb merge" span's wall ms and the device's busy ms inside it, from
+    the Chrome trace the profiler writes; the file is deleted after."""
     import glob
     import shutil
 
@@ -3803,9 +3803,11 @@ def trace_split(ctx: Ctx, label: str, call):
             events = json.load(f)["traceEvents"]
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+    # the sharded search's own host ranges (a C++ range's category is
+    # "cpu_op"); the engines' inner spans (seeds, hops, waits) are left out
     spans = [(e["name"][5:], e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-             and e.get("name", "").startswith("zvdb ")]
+             if e.get("ph") == "X" and not e.get("cat", "").startswith("gpu_")
+             and (e.get("name", "").startswith("zvdb shard ") or e.get("name") == "zvdb merge")]
     kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                      if e.get("ph") == "X" and e.get("cat") == "kernel")
     if not kernels:

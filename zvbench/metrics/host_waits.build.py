@@ -1,0 +1,22 @@
+"""host_waits.build: the times the host waited for the device in one bulk
+build, from the program's own counters (zvdb_tpu_torch/utils/profiling.py):
+the waits made inside the engine's build calls (`host_waits`, keyed by call
+and site) over those calls (`entry_calls`), every build of the run (set-up's
+and the window's). None where the program keeps no such counters, or where
+the traced sub-window saw no device work (a CPU run waits for no device)."""
+import sys
+
+UNIT = "waits"
+CALLS = ("cagra.build",)
+
+
+def read(rec):
+    prof = rec.get("profile")
+    if rec["loop"] != "build" or not prof or prof["busy_s"] <= 0:
+        return None
+    prog = sys.modules.get("zvdb_tpu_torch.utils.profiling")
+    calls, waits = getattr(prog, "entry_calls", None), getattr(prog, "host_waits", None)
+    if calls is None or waits is None:
+        return None
+    n = sum(calls[c] for c in CALLS)
+    return sum(v for (c, _), v in waits.items() if c in CALLS) / n if n else None

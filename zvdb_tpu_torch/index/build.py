@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import os
 import time
 from typing import Optional
 
@@ -30,6 +29,7 @@ import torch
 from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.config import HNSWConfig
+from ..utils.profiling import Stages, wait
 
 _INF = float("inf")
 _BIG = 1e30
@@ -140,9 +140,12 @@ def _reverse_pass(
     cand_d = torch.cat([dist_table[st_safe], rev_d], dim=-1)
     cand_d = torch.where(cand >= 0, cand_d, _INF)
     new_d, new_rows = T.sort_smallest_k(cand_d, cand, degree, dedupe=True)
-    rows = st[first].long()
-    nbr_table[rows] = new_rows[first]
-    dist_table[rows] = new_d[first]
+    with wait("reverse_first"):   # boolean masks' sizes, one wait each
+        rows = st[first].long()
+    with wait("reverse_first"):
+        nbr_table[rows] = new_rows[first]
+    with wait("reverse_first"):
+        dist_table[rows] = new_d[first]
     return nbr_table, dist_table
 
 
@@ -182,7 +185,10 @@ def _reverse_pass_bulk(
     prev = torch.cat([st.new_full((1,), -2), st[:-1]])
     first = (st != prev) & (st < 2**30)
     pos0 = torch.full((cap1,), p, dtype=torch.int32, device=dev)
-    pos0[st[first].long()] = torch.arange(p, dtype=torch.int32, device=dev)[first]
+    with wait("reverse_first"):   # boolean masks' sizes, one wait each
+        at = torch.arange(p, dtype=torch.int32, device=dev)[first]
+    with wait("reverse_first"):
+        pos0[st[first].long()] = at
     del prev, first
 
     idx = torch.clamp(pos0[:, None] + torch.arange(w, dtype=torch.int32, device=dev)[None, :],
@@ -289,27 +295,6 @@ def _attach_anchors(state, n: int, gen: torch.Generator):
 # shared by the builds
 
 
-class _Stages:
-    """A build's stage seconds under ZVDB_BUILD_TRACE=1: `mark(name)` adds
-    the seconds since the previous mark to stages[name], after a sync on a
-    CUDA device, so a stage called once a batch sums over the batches.
-    Without the variable a mark does nothing and costs no sync."""
-
-    def __init__(self, dev: torch.device, stages: dict):
-        self.on = os.environ.get("ZVDB_BUILD_TRACE", "") not in ("", "0")
-        self.dev, self.stages = dev, stages
-        self.t = time.perf_counter()
-
-    def __call__(self, name: str) -> None:
-        if not self.on:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        t = time.perf_counter()
-        self.stages[name] = self.stages.get(name, 0.0) + t - self.t
-        self.t = t
-
-
 def _prepared(x, metric: str):
     """The corpus as f32, rows normalized for cosine: numpy stays numpy (the
     JAX package's host normalization, bit for bit), a tensor stays on its
@@ -341,11 +326,6 @@ def _capacity(n: int, cfg, capacity: Optional[int]):
     cap_min = -(-max(n, 1) // bsz) * bsz
     cap = max(capacity, cap_min) if capacity is not None else cap_min
     return cap, cfg.max_level if cfg.max_level is not None else max_level_for(cap, cfg.m)
-
-
-def _print_stages(label: str, stages: dict) -> None:
-    print(f"[{label}] total={sum(stages.values()):.2f}s  "
-          + "  ".join(f"{k}={v:.2f}s" for k, v in stages.items()), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -406,8 +386,8 @@ def _oneshot_impl(x, cfg, gen, capacity, device, stats, checkpoint_path, resume)
     if n == 0:
         return state, cap, levels_cap
     stages = {}
-    mark = _Stages(dev, stages)
-
+    mark = Stages(dev, "hnsw.build.", stages)
+    mark("ingest")
     xs = _prepared(x, cfg.metric)
     if cfg.dtype == "int8":
         state.q_scale = _int8_scale(xs)
@@ -439,9 +419,9 @@ def _oneshot_impl(x, cfg, gen, capacity, device, stats, checkpoint_path, resume)
     # the graph is built over what the index searches: the dequantized rows
     xj = state.vectors[:n] if cfg.dtype == "float32" else \
         state.vectors[:n].float() * state.q_scale
-    mark("ingest")
 
     # ---- base layer
+    mark("base")
     if resume is None:
         nbrs, dists, *_ = build_knn_graph(
             xj, cfg.base_degree, gen, metric=cfg.metric, alpha=cfg.alpha, precision=prec,
@@ -453,16 +433,16 @@ def _oneshot_impl(x, cfg, gen, capacity, device, stats, checkpoint_path, resume)
     else:
         state.nbr0[:n] = torch.from_numpy(np.asarray(resume[1], np.int32)).to(dev)
         state.dist0[:n] = torch.from_numpy(np.asarray(resume[2], np.float32)).to(dev)
-    mark("base")
     if xs_host is not None:
+        mark("checkpoint")
         np.savez_compressed(
             checkpoint_path,
             meta=json.dumps(dict(kind="hnsw_oneshot", cfg=dataclasses.asdict(cfg), capacity=cap)),
             corpus=xs_host, lv=levels, key=key, nbrs=state.nbr0[:n].cpu().numpy(),
             dists=state.dist0[:n].cpu().numpy())
-        mark("checkpoint")
 
     # ---- upper layers
+    mark("upper")
     for ell in range(1, levels_cap + 1):
         rows = np.nonzero(levels >= ell)[0]
         if rows.size < 2:
@@ -475,15 +455,15 @@ def _oneshot_impl(x, cfg, gen, capacity, device, stats, checkpoint_path, resume)
     state.entry = int(np.argmax(levels))
     state.max_level = int(levels.max())
     state.n = n
-    mark("upper")
-    _attach_anchors(state, n, epilogue)
     mark("anchors")
+    _attach_anchors(state, n, epilogue)
+    mark("reorder")
     if cfg.diverse_rows:
         reorder_rows_diverse(state, cfg)
-    mark("reorder")
-    if mark.on:
+    mark.end()
+    if mark.timed:
         stats["stages"] = stages
-        _print_stages(f"hnsw oneshot n={n}", stages)
+        print(mark.report(f"hnsw oneshot n={n}"), flush=True)
     return state, cap, levels_cap
 
 
@@ -516,13 +496,14 @@ def build_batch_step(state, xb: torch.Tensor, lb: np.ndarray, extb: np.ndarray,
          rows written and _reverse_pass merging the reverse edges;
       5. the bookkeeping (entry promotion, max_level, n), on the host.
     An upper layer no batch row reaches is skipped by a host `if` (JAX's
-    lax.cond). Every product takes cfg.precision. `mark`: a _Stages timer
-    (None: no marks)."""
+    lax.cond). Every product takes cfg.precision. `mark`: the build's
+    utils.profiling.Stages (None: one of its own)."""
     from .hnsw import _greedy_layer, _scores_to, anchor_seeds, beam_layer, torch_precision
 
-    mark = mark or (lambda name: None)
     b = xb.shape[0]
     dev = state.vectors.device
+    mark = mark or Stages(dev, "hnsw.build.")
+    mark("ingest")
     m, m0, metric = cfg.m, cfg.base_degree, cfg.metric
     prec = torch_precision(cfg.precision)
     valid = np.asarray(valid, bool)
@@ -546,9 +527,9 @@ def build_batch_step(state, xb: torch.Tensor, lb: np.ndarray, extb: np.ndarray,
     # build queries: the dequantized stored rows (cosine rows normalized at ingest)
     q = stored.float() * state.q_scale
     qn = D.sq_norms(q)
-    mark("ingest")
 
     # ---- 2. frozen-prefix beams
+    mark("descent")
     def with_anchors(seed_r, seed_s):
         """The base beam's seeds [B, S] and, with seed_anchors, the best
         anchor rows (all in the prefix: anchors are sampled from built rows)."""
@@ -571,11 +552,10 @@ def build_batch_step(state, xb: torch.Tensor, lb: np.ndarray, extb: np.ndarray,
             better = bs[:, :1] < seed_s[:, :1]
             seed_r = torch.where(better & (br[:, :1] >= 0), br[:, :1], seed_r)
             seed_s = torch.where(better, bs[:, :1], seed_s)
-        mark("descent")
+        mark("base beam")
         seed_r, seed_s = with_anchors(seed_r, seed_s)
         beams[0] = beam_layer(state, q, seed_r, seed_s, state.nbr0, cfg.ef_construction, metric,
                               expand=cfg.build_expand, limit_n=prefix_n, precision=prec)
-        mark("base beam")
 
         def layer_cands(ell):
             return beams[ell]
@@ -589,11 +569,10 @@ def build_batch_step(state, xb: torch.Tensor, lb: np.ndarray, extb: np.ndarray,
                 seed_r, seed_s = _greedy_layer(state, q, seed_r, seed_s, state.nbrU[ell - 1],
                                                metric, 32, prec)
             path[ell] = (seed_s, seed_r)
-        mark("descent")
+        mark("base beam")
         bs0, br0 = beam_layer(state, q, *with_anchors(seed_r[:, None], seed_s[:, None]),
                               state.nbr0, cfg.ef_construction, metric,
                               expand=cfg.build_expand, limit_n=prefix_n, precision=prec)
-        mark("base beam")
         cand_lv = state.levels[br0.clamp(min=0).long()]
 
         def layer_cands(ell):
@@ -610,10 +589,10 @@ def build_batch_step(state, xb: torch.Tensor, lb: np.ndarray, extb: np.ndarray,
                                torch.where(ok, br0, -1)], dim=-1))
 
     # ---- 3. intra-batch brute-force candidates
+    mark("intra")
     intra = D.pairwise_scores(q, q, torch.where(valid_t, qn, _INF), metric, precision=prec)
     intra.fill_diagonal_(_INF)
     intra.masked_fill_(~valid_t[None, :], _INF)
-    mark("intra")
 
     def layer_edges(ell, degree, k_intra):
         """Forward selection for one layer -> (fwd ids, fwd dists, the rows
@@ -636,13 +615,14 @@ def build_batch_step(state, xb: torch.Tensor, lb: np.ndarray, extb: np.ndarray,
         return fwd, fwd_d, fwd[:, :degree], fwd_d[:, :degree]
 
     # ---- 4. the base layer: forward edges and the reverse merge
+    mark("base select+reverse")
     fwd0, fwd0_d, row_ids, row_ds = layer_edges(0, m0, min(b, cfg.ef_construction))
     state.nbr0[base:base + b] = row_ids
     state.dist0[base:base + b] = row_ds
     _reverse_pass(state.nbr0, state.dist0, rows, fwd0, fwd0_d, m0)
-    mark("base select+reverse")
 
     # ---- the upper layers a batch row reaches (level-sorted builds: the first batches)
+    mark("upper layers")
     k_intra_u = min(b, cfg.ef_construction_upper)
     for ell in range(1, levels_cap + 1):
         if not (lb_m >= ell).any():
@@ -652,7 +632,7 @@ def build_batch_step(state, xb: torch.Tensor, lb: np.ndarray, extb: np.ndarray,
         tab[base:base + b] = row_ids
         dtab[base:base + b] = row_ds
         _reverse_pass(tab, dtab, rows, fwd, fwd_d, m)
-    mark("upper layers")
+    mark.end()
 
     # ---- 5. bookkeeping, on the host
     if valid.any():
@@ -678,7 +658,7 @@ def _run_batches(state, x, levels, ext, cfg, levels_cap, start_batch: int = 0, o
     bsz = min(cfg.build_batch, max(n, 1))
     nb = -(-n // bsz)
     dev = state.vectors.device
-    mark = _Stages(dev, {} if stages is None else stages)
+    mark = Stages(dev, "hnsw.build.", {} if stages is None else stages)
     for t in range(start_batch, nb):
         lo, hi = t * bsz, min((t + 1) * bsz, n)
         if isinstance(x, torch.Tensor):
@@ -695,8 +675,9 @@ def _run_batches(state, x, levels, ext, cfg, levels_cap, start_batch: int = 0, o
         vb = np.arange(bsz) < hi - lo
         build_batch_step(state, xb, lb, eb, vb, cfg, levels_cap, seed_anchors, mark)
         if on_batch is not None:
-            on_batch(state, t, nb)
             mark("checkpoint")
+            on_batch(state, t, nb)
+            mark.end()
     return state
 
 
@@ -780,15 +761,16 @@ def bulk_build(x, cfg, gen: torch.Generator, sort_by_level: bool = True,
     stages = {}
     _run_batches(state, xs, ls, ext, cfg, levels_cap, on_batch=on_batch, stages=stages)
     del xs
-    mark = _Stages(dev, stages)
+    mark = Stages(dev, "hnsw.build.", stages)
+    mark("anchors+reorder")
     _attach_anchors(state, n, gen)
     if cfg.diverse_rows:
         reorder_rows_diverse(state, cfg)
-    mark("anchors+reorder")
+    mark.end()
     stats["batches"] = -(-n // min(cfg.build_batch, n))
-    if mark.on:
+    if mark.timed:
         stats["stages"] = stages
-        _print_stages(f"hnsw batched n={n}", stages)
+        print(mark.report(f"hnsw batched n={n}"), flush=True)
     return state, cap, levels_cap
 
 
@@ -839,7 +821,8 @@ def extend_graph(state, capacity: int, levels_cap: int, x: np.ndarray, cfg, gen:
         new_cap = max(need, 2 * capacity)
         state = _grown(state, capacity, new_cap, cfg, levels_cap)
         if state.vectors.device.type == "cuda":
-            torch.cuda.synchronize(state.vectors.device)
+            with wait("grow_sync"):
+                torch.cuda.synchronize(state.vectors.device)
         stats["grow_s"] = time.perf_counter() - t0
         capacity = new_cap
     levels = sample_levels(gen, n_new, cfg.m, levels_cap, cfg.ml)

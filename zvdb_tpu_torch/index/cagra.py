@@ -38,6 +38,7 @@ from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.filter_policy import resolve_filter_mode
 from ..utils.masks import allowed_mask
+from ..utils.profiling import entry, span, wait
 from .build import _reverse_pass, select_neighbors
 from .flat import masked_exact_search, resolve_device, tensor_from_numpy
 from .hnsw import _bdot, _f32, beam_layer_fn
@@ -163,7 +164,9 @@ def _pick_anchor_rows(gen: torch.Generator, n: int, n_anchors: int, device) -> t
     a = min(n_anchors, max(n, 1))
     if a >= n:
         return torch.arange(n, dtype=torch.int32, device=device)
-    return torch.randperm(n, generator=gen)[:a].to(torch.int32).to(device)
+    rows = torch.randperm(n, generator=gen)[:a].to(torch.int32)
+    with wait("anchor_rows"):   # a pageable upload
+        return rows.to(device)
 
 
 def _reseed_anchors(state: CagraState, n: int, gen: torch.Generator,
@@ -252,19 +255,21 @@ def cagra_search_impl(
     """Returns (user_scores [B, k], ids [B, k]); ids are row ids (insertion
     order: the graph never reorders rows). With seed_approx and more than
     4 * n_seeds anchors, the seeds are selected by approx_min_k, as in JAX;
-    else they are the exact n_seeds best anchors."""
+    else they are the exact n_seeds best anchors. Spans (utils.profiling):
+    "cagra.seeds", beam_layer_fn's "beam.init" and "beam.hop", "cagra.final"."""
     qp = D.preprocess_queries(q, metric)
     efk = max(ef, k)
-    # seeds: one [B, A] product over the dense anchor table; the anchor
-    # scores ARE the seed scores (anchors hold the stored vectors exactly)
-    cs = D.pairwise_scores(qp, arrs.anchors, arrs.a_norms, metric, precision=precision)
-    s_count = min(n_seeds, arrs.anchors.shape[0])
-    if seed_approx and arrs.anchors.shape[0] > 4 * s_count:
-        seed_s, top = AK.approx_min_k(cs, s_count)
-    else:
-        seed_s, top = T.smallest_k_dense(cs, s_count)
-    del cs
-    seeds = arrs.a_rows[top]
+    with span("cagra.seeds"):
+        # seeds: one [B, A] product over the dense anchor table; the anchor
+        # scores ARE the seed scores (anchors hold the stored vectors exactly)
+        cs = D.pairwise_scores(qp, arrs.anchors, arrs.a_norms, metric, precision=precision)
+        s_count = min(n_seeds, arrs.anchors.shape[0])
+        if seed_approx and arrs.anchors.shape[0] > 4 * s_count:
+            seed_s, top = AK.approx_min_k(cs, s_count)
+        else:
+            seed_s, top = T.smallest_k_dense(cs, s_count)
+        del cs
+        seeds = arrs.a_rows[top]
     if fat:
         expander = _make_fat_expander(arrs, qp, metric, arrs.nbrs.shape[-1], precision)
         beam_s, beam_r = beam_layer_fn(None, seeds, seed_s, arrs.nbrs, efk, expand=expand,
@@ -275,17 +280,18 @@ def cagra_search_impl(
         beam_s, beam_r = beam_layer_fn(scorer, seeds, seed_s, arrs.nbrs, efk, expand=expand,
                                        max_iters=max_iters, dedupe_candidates=dedupe,
                                        use_degree=search_degree)
-    beam_s, beam_r = T.mask_duplicate_ids(beam_s, beam_r)
-    if arrs.dead is not None:
-        # tombstoned / filtered rows routed the beam but never enter results
-        hit = arrs.dead[beam_r.clamp(min=0).long()] & (beam_r >= 0)
-        beam_s = torch.where(hit, _INF, beam_s)
-        beam_r = torch.where(hit, -1, beam_r)
-    top_s, top_r = T.smallest_k(beam_s, beam_r, k)
-    valid = top_r >= 0
-    user = D.finalize_scores(top_s, qp, metric)
-    user = torch.where(valid, user, _INF if metric == "l2" else -_INF)
-    ids = torch.where(valid & (arrs.n > 0), top_r, -1)
+    with span("cagra.final"):
+        beam_s, beam_r = T.mask_duplicate_ids(beam_s, beam_r)
+        if arrs.dead is not None:
+            # tombstoned / filtered rows routed the beam but never enter results
+            hit = arrs.dead[beam_r.clamp(min=0).long()] & (beam_r >= 0)
+            beam_s = torch.where(hit, _INF, beam_s)
+            beam_r = torch.where(hit, -1, beam_r)
+        top_s, top_r = T.smallest_k(beam_s, beam_r, k)
+        valid = top_r >= 0
+        user = D.finalize_scores(top_s, qp, metric)
+        user = torch.where(valid, user, _INF if metric == "l2" else -_INF)
+        ids = torch.where(valid & (arrs.n > 0), top_r, -1)
     return user, ids
 
 
@@ -413,7 +419,7 @@ class CagraIndex:
         else:
             x = np.asarray(x, np.float32)
         n = x.shape[0]
-        with self._lock:
+        with self._lock, entry("cagra.build"):
             self._pending = []
             self._n_inserted = n
             self._dead = set()
@@ -446,20 +452,23 @@ class CagraIndex:
             else:
                 xj = x if on_device else torch.from_numpy(x).to(self.device)
                 nbrs, dists, _c, _cn, _r = build_knn_graph(xj, cfg.degree, self._gen, **kw)
-            q_scale = 1.0
-            if cfg.dtype == "int8":
-                q_scale = _f32(max(float(xj.abs().max()), 1e-12) / 127.0)
-                stored, norms = D.quantize_corpus_global(xj, cfg.metric, q_scale)
-            else:
-                stored, norms = D.preprocess_corpus(xj, cfg.metric, cfg.storage_dtype)
-                if stored is xj:   # f32 l2/dot rows would alias the caller's
-                    stored = stored.clone()
-            a_rows = _pick_anchor_rows(self._gen, n, cfg.n_anchors, self.device)
-            # anchors hold the DEQUANTIZED stored vectors, so seed scores are
-            # what the beam scorer computes for those rows
-            anchors = stored[a_rows.long()].float() * q_scale
-            a_norms = norms[a_rows.long()] if cfg.metric == "l2" else \
-                torch.zeros(a_rows.shape[0], dtype=torch.float32, device=self.device)
+            with span("cagra.anchors"):
+                q_scale = 1.0
+                if cfg.dtype == "int8":
+                    with wait("int8_scale"):
+                        amax = float(xj.abs().max())
+                    q_scale = _f32(max(amax, 1e-12) / 127.0)
+                    stored, norms = D.quantize_corpus_global(xj, cfg.metric, q_scale)
+                else:
+                    stored, norms = D.preprocess_corpus(xj, cfg.metric, cfg.storage_dtype)
+                    if stored is xj:   # f32 l2/dot rows would alias the caller's
+                        stored = stored.clone()
+                a_rows = _pick_anchor_rows(self._gen, n, cfg.n_anchors, self.device)
+                # anchors hold the DEQUANTIZED stored vectors, so seed scores are
+                # what the beam scorer computes for those rows
+                anchors = stored[a_rows.long()].float() * q_scale
+                a_norms = norms[a_rows.long()] if cfg.metric == "l2" else \
+                    torch.zeros(a_rows.shape[0], dtype=torch.float32, device=self.device)
             self.capacity = n
             self.state = CagraState(vectors=stored, norms=norms, nbrs=nbrs, dists=dists,
                                     anchors=anchors, a_norms=a_norms, a_rows=a_rows, n=n,
@@ -633,7 +642,7 @@ class CagraIndex:
         the final beam, "auto" picks (utils/filter_policy.py)."""
         if filter_mode not in ("auto", "scan", "beam"):
             raise ValueError(f"invalid filter_mode {filter_mode!r}")
-        with self._lock:
+        with self._lock, entry("cagra.search"):
             self._flush_locked()
             filter_mode = resolve_filter_mode(filter_mode, allowed, self._n_inserted, alt="beam")
             q = torch.as_tensor(q, dtype=torch.float32, device=self.device)

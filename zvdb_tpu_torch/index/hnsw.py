@@ -56,6 +56,7 @@ import torch
 from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.config import HNSWConfig, SearchConfig
+from ..utils.profiling import span
 from .flat import resolve_device, tensor_from_numpy
 
 _INF = float("inf")
@@ -276,11 +277,15 @@ def beam_layer_fn(
     are deduped against the beam, and beam entries carry an expanded flag.
 
     JAX's while_loop stops once every query is done; this loop always runs
-    max_iters iterations and never reads `done` on the host, so a batch on
-    the GPU costs no device-to-host sync per hop. The two return the same
-    beam: once every query is done, every entry is expanded, so an iteration
-    selects no row (sel_r all -1), scores only invalid candidates (-1/+inf)
-    and its merge keeps the beam as it was.
+    max_iters iterations and never reads `done` on the host. The two return
+    the same beam: once every query is done, every entry is expanded, so an
+    iteration selects no row (sel_r all -1), scores only invalid candidates
+    (-1/+inf) and its merge keeps the beam as it was. Each hop still waits
+    for the device twice, in its two smallest_k_dense calls (their tie
+    repair's `nonzero`), and the seeding once or twice more.
+
+    Spans (utils.profiling): "beam.init" around the seeding, "beam.hop"
+    around each iteration.
     """
     b, s_width = seed_rows.shape
     e = expand
@@ -288,52 +293,54 @@ def beam_layer_fn(
     if max_iters is None:
         max_iters = max(ef // max(e, 1), 1) + 8
 
-    pad = ef - s_width
-    if pad < 0:
-        seed_scores, seed_rows = T.smallest_k(seed_scores, seed_rows, ef)
-        pad = 0
-    beam_s = torch.cat([seed_scores, seed_scores.new_full((b, pad), _INF)], dim=1)
-    beam_r = torch.cat([seed_rows, seed_rows.new_full((b, pad), -1)], dim=1)
-    beam_s, beam_r = T.mask_duplicate_ids(beam_s, beam_r)
-    beam_s, beam_r = T.smallest_k(beam_s, beam_r, ef)
-    expanded = beam_r < 0   # invalid slots count as expanded
-    done = torch.zeros(b, dtype=torch.bool, device=beam_s.device)
+    with span("beam.init"):
+        pad = ef - s_width
+        if pad < 0:
+            seed_scores, seed_rows = T.smallest_k(seed_scores, seed_rows, ef)
+            pad = 0
+        beam_s = torch.cat([seed_scores, seed_scores.new_full((b, pad), _INF)], dim=1)
+        beam_r = torch.cat([seed_rows, seed_rows.new_full((b, pad), -1)], dim=1)
+        beam_s, beam_r = T.mask_duplicate_ids(beam_s, beam_r)
+        beam_s, beam_r = T.smallest_k(beam_s, beam_r, ef)
+        expanded = beam_r < 0   # invalid slots count as expanded
+        done = torch.zeros(b, dtype=torch.bool, device=beam_s.device)
 
     for _ in range(max_iters):
-        unexp_s = torch.where(expanded, _INF, beam_s)
-        _, pos = T.smallest_k_dense(unexp_s, e)                        # [B, E]
-        sel_s = torch.gather(unexp_s, -1, pos)
-        sel_r = torch.where(torch.isfinite(sel_s), torch.gather(beam_r, -1, pos), -1)
+        with span("beam.hop"):
+            unexp_s = torch.where(expanded, _INF, beam_s)
+            _, pos = T.smallest_k_dense(unexp_s, e)                        # [B, E]
+            sel_s = torch.gather(unexp_s, -1, pos)
+            sel_r = torch.where(torch.isfinite(sel_s), torch.gather(beam_r, -1, pos), -1)
 
-        # termination: best unexpanded no better than the worst beam slot
-        done = done | (sel_s[:, 0] >= beam_s.amax(-1))
+            # termination: best unexpanded no better than the worst beam slot
+            done = done | (sel_s[:, 0] >= beam_s.amax(-1))
 
-        onehot = torch.zeros_like(expanded).scatter_(1, pos, True) & torch.isfinite(unexp_s)
-        expanded = expanded | onehot
+            onehot = torch.zeros_like(expanded).scatter_(1, pos, True) & torch.isfinite(unexp_s)
+            expanded = expanded | onehot
 
-        if expand_fn is not None:
-            cand, c_s = expand_fn(sel_r)
-        else:
-            cand = nbrs[sel_r.clamp(min=0).long()]                     # [B, E, deg]
-            if use_degree is not None and use_degree < deg:
-                cand = cand[:, :, :use_degree]
-            cand = torch.where((sel_r >= 0)[:, :, None], cand, -1).reshape(b, -1)
-            if limit_n is not None:
-                cand = torch.where(cand < limit_n, cand, -1)
-            c_s = score_rows(cand)
-        if dedupe_candidates:
-            c_s, cand = T.mask_duplicate_ids(c_s, cand)
-        c_s, cand = T.mask_ids_in(c_s, cand, beam_r)
+            if expand_fn is not None:
+                cand, c_s = expand_fn(sel_r)
+            else:
+                cand = nbrs[sel_r.clamp(min=0).long()]                     # [B, E, deg]
+                if use_degree is not None and use_degree < deg:
+                    cand = cand[:, :, :use_degree]
+                cand = torch.where((sel_r >= 0)[:, :, None], cand, -1).reshape(b, -1)
+                if limit_n is not None:
+                    cand = torch.where(cand < limit_n, cand, -1)
+                c_s = score_rows(cand)
+            if dedupe_candidates:
+                c_s, cand = T.mask_duplicate_ids(c_s, cand)
+            c_s, cand = T.mask_ids_in(c_s, cand, beam_r)
 
-        # merge into the beam, carrying expanded flags (new entries unexpanded)
-        all_s = torch.cat([beam_s, c_s], dim=-1)
-        all_r = torch.cat([beam_r, cand], dim=-1)
-        all_e = torch.cat([expanded, torch.zeros_like(cand, dtype=torch.bool)], dim=-1)
-        _, top = T.smallest_k_dense(all_s, ef)
-        beam_s = torch.gather(all_s, -1, top)
-        beam_r = torch.gather(all_r, -1, top)
-        # done queries keep everything expanded, so they do no further work
-        expanded = torch.gather(all_e, -1, top) | (beam_r < 0) | done[:, None]
+            # merge into the beam, carrying expanded flags (new entries unexpanded)
+            all_s = torch.cat([beam_s, c_s], dim=-1)
+            all_r = torch.cat([beam_r, cand], dim=-1)
+            all_e = torch.cat([expanded, torch.zeros_like(cand, dtype=torch.bool)], dim=-1)
+            _, top = T.smallest_k_dense(all_s, ef)
+            beam_s = torch.gather(all_s, -1, top)
+            beam_r = torch.gather(all_r, -1, top)
+            # done queries keep everything expanded, so they do no further work
+            expanded = torch.gather(all_e, -1, top) | (beam_r < 0) | done[:, None]
     return beam_s, beam_r
 
 

@@ -37,9 +37,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import os
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -51,6 +49,7 @@ from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.filter_policy import resolve_filter_mode
 from ..utils.masks import allowed_mask
+from ..utils.profiling import Stages, entry, span, wait
 from .flat import _pad_k, masked_exact_search, resolve_device, tensor_from_numpy
 
 _INF = float("inf")
@@ -150,7 +149,8 @@ def _update_centroids(x: torch.Tensor, assign: torch.Tensor, cent: torch.Tensor,
     for lo in range(0, x.shape[0], tile):
         oh = F.one_hot(assign[lo:lo + tile].long(), c).float()
         sums += oh.T @ xb[lo:lo + tile]
-    counts = torch.bincount(assign.long(), minlength=c).float()
+    with wait("kmeans_counts", syncs=2):   # bincount checks a min and sizes by a max
+        counts = torch.bincount(assign.long(), minlength=c).float()
     new = sums / counts.clamp(min=1.0)[:, None]
     return torch.where(counts[:, None] > 0, new, cent)
 
@@ -419,44 +419,49 @@ def ivf_search_impl(state: IVFState, q: torch.Tensor, k: int, nprobe: int, metri
     passes `c_mask` ([C] bool: its padded cluster slots are never probed)
     and `id_map` ([rcap] int32: b_ids, the shadow rows and `allowed` are
     then indexed by local id, mapped to global ids after the rerank), as in
-    the JAX package."""
+    the JAX package. Spans (utils.profiling): "ivf.probes", "ivf.scan" (the
+    pair or grouped scan whole), "ivf.final"."""
     prec = _prec(precision)
     qp = D.preprocess_queries(q, metric)
     b = qp.shape[0]
     c, bcap, _ = state.blocks.shape
     p = nprobe
-    cs = D.pairwise_scores(qp, state.centroids, state.c_norms, metric, precision=prec)
-    if c_mask is not None:
-        cs = torch.where(c_mask[None, :], cs, _INF)
-    if c >= 4096 and p * 4 <= c:   # JAX's guard for its hardware top-k
-        _, probes = AK.approx_min_k(cs, p)                                  # [B, P]
-    else:
-        _, probes = T.smallest_k_dense(cs, p)
+    with span("ivf.probes"):
+        cs = D.pairwise_scores(qp, state.centroids, state.c_norms, metric, precision=prec)
+        if c_mask is not None:
+            cs = torch.where(c_mask[None, :], cs, _INF)
+        if c >= 4096 and p * 4 <= c:   # JAX's guard for its hardware top-k
+            _, probes = AK.approx_min_k(cs, p)                              # [B, P]
+        else:
+            _, probes = T.smallest_k_dense(cs, p)
     # filtered search widens each probe's pool so enough rows survive the allowlist
     kk = min((k * rerank if rerank else k) * max(filter_widen, 1), bcap)
-    if use_pair_scan(c, b, p):
-        merged_s, merged_i = _pair_scan(state, qp, cs, probes, kk, metric, residual, prec)
-    else:
-        merged_s, merged_i = _grouped_scan(state, qp, cs, probes, kk, metric, residual,
-                                           group_slack, prec)
-    if allowed is not None:
-        ok = allowed[merged_i.clamp(min=0).long()] & (merged_i >= 0)
-        merged_s = torch.where(ok, merged_s, _INF)
-        merged_i = torch.where(ok, merged_i, -1)
-    if rerank:
-        cand_s, cand_i = T.smallest_k(merged_s, merged_i, min(k * rerank, merged_s.shape[-1]))
-        cand_s, cand_i = T.mask_duplicate_ids(cand_s, cand_i)
-        safe = cand_i.clamp(min=0).long()
-        ex = D.gathered_scores(qp, state.rerank_vecs[safe], state.rerank_norms[safe], metric,
-                               precision=prec)
-        ex = torch.where(cand_i >= 0, ex, _INF)
-        best_s, best_i = T.smallest_k(ex, cand_i, k)
-    else:
-        best_s, best_i = T.smallest_k(merged_s, merged_i, k)
-    user = D.finalize_scores(best_s, qp, metric)
-    user = torch.where(best_i >= 0, user, _INF if metric == "l2" else -_INF)
-    if id_map is not None:
-        best_i = torch.where(best_i >= 0, id_map[best_i.clamp(min=0).long()], -1)
+    with span("ivf.scan"):
+        if use_pair_scan(c, b, p):
+            merged_s, merged_i = _pair_scan(state, qp, cs, probes, kk, metric, residual, prec)
+        else:
+            merged_s, merged_i = _grouped_scan(state, qp, cs, probes, kk, metric, residual,
+                                               group_slack, prec)
+    with span("ivf.final"):
+        if allowed is not None:
+            ok = allowed[merged_i.clamp(min=0).long()] & (merged_i >= 0)
+            merged_s = torch.where(ok, merged_s, _INF)
+            merged_i = torch.where(ok, merged_i, -1)
+        if rerank:
+            cand_s, cand_i = T.smallest_k(merged_s, merged_i,
+                                          min(k * rerank, merged_s.shape[-1]))
+            cand_s, cand_i = T.mask_duplicate_ids(cand_s, cand_i)
+            safe = cand_i.clamp(min=0).long()
+            ex = D.gathered_scores(qp, state.rerank_vecs[safe], state.rerank_norms[safe],
+                                   metric, precision=prec)
+            ex = torch.where(cand_i >= 0, ex, _INF)
+            best_s, best_i = T.smallest_k(ex, cand_i, k)
+        else:
+            best_s, best_i = T.smallest_k(merged_s, merged_i, k)
+        user = D.finalize_scores(best_s, qp, metric)
+        user = torch.where(best_i >= 0, user, _INF if metric == "l2" else -_INF)
+        if id_map is not None:
+            best_i = torch.where(best_i >= 0, id_map[best_i.clamp(min=0).long()], -1)
     return user, best_i
 
 
@@ -670,19 +675,12 @@ class IVFIndex:
         split), snapshot the build plan (centroids, the order/cluster/slot
         triples, the corpus) in the JAX package's format; resume_build(path)
         then reruns only the deterministic pack, so a resumed index equals
-        the direct build. With ZVDB_BUILD_TRACE=1 it prints each stage's
-        seconds."""
+        the direct build. Its stages are spans "ivf.build.<stage>"
+        (utils.profiling.Stages); with ZVDB_BUILD_TRACE=1 it prints each
+        stage's seconds."""
         from .knn_graph import _kmeans_device
 
-        trace = os.environ.get("ZVDB_BUILD_TRACE", "") not in ("", "0")
-        marks = [("start", time.perf_counter())]
-
-        def mark(name):
-            if trace:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                marks.append((name, time.perf_counter()))
-
+        mark = Stages(self.device, "ivf.build.")
         on_device = isinstance(x, torch.Tensor)
         if not on_device:
             x = np.asarray(x, np.float32)
@@ -695,6 +693,7 @@ class IVFIndex:
             if n == 0:   # empty corpus -> empty index
                 return
             self._check_dim(x)
+            mark("kmeans")
             cfg = self.cfg
             if on_device:
                 x = x.to(device=self.device, dtype=torch.float32)
@@ -710,11 +709,13 @@ class IVFIndex:
             xn = D.sq_norms(xd) if cfg.metric == "l2" else xd.new_zeros(n)
             cent = _kmeans_device(xd, c, cfg.kmeans_iters, self._gen,
                                   sample=min(n, cfg.kmeans_sample))
-            mark("kmeans")
+            mark("assign")
             # l2 geometry drives the assignment for every metric (cosine rows
             # are normalized; dot uses the same Voronoi cells)
-            assign = _assign(xd, xn, cent, D.sq_norms(cent)).cpu().numpy().astype(np.int64)
-            mark("assign+pull")
+            assign = _assign(xd, xn, cent, D.sq_norms(cent))
+            with wait("ivf_assign_pull"):
+                assign = assign.cpu().numpy().astype(np.int64)
+            mark("split")
 
             cap_split = int(math.ceil(cfg.max_cluster_factor * max(n, 1) / c / 8.0)) * 8
             cap_split = max(cap_split, 8)
@@ -724,7 +725,7 @@ class IVFIndex:
                                                          cap_split)
             else:
                 cent_np, assign = split_oversized(x, cent.cpu().numpy(), assign, cap_split, rng)
-            mark("split")
+            mark("order")
             cap = self._occupancy_cap(assign, len(cent_np))
             if n >= 500_000:
                 order = torch.argsort(torch.as_tensor(assign, dtype=torch.int32,
@@ -735,7 +736,7 @@ class IVFIndex:
             sa = assign[order].astype(np.int32)
             first = np.searchsorted(sa, np.arange(len(cent_np)), side="left")
             slot = (np.arange(n) - first[sa]).astype(np.int32)
-            mark("host-order")
+            mark("pack")
             rcap = max(1024, -(-n // 1024) * 1024 + 1024) if cfg.rerank else 0
             if checkpoint_path:
                 np.savez_compressed(
@@ -745,12 +746,9 @@ class IVFIndex:
                     corpus=xd.cpu().numpy() if on_device else np.asarray(x),
                     cent=cent_np.astype(np.float32), order=order, sa=sa, slot=slot)
             self.state = self._pack_from_plan(xd, cent_np, order, sa, slot, cap, rcap)
-            mark("pack")
-            if trace:
-                total = marks[-1][1] - marks[0][1]
-                parts = "  ".join(f"{nm}={t1 - t0:.2f}s" for (_, t0), (nm, t1)
-                                  in zip(marks, marks[1:]))
-                print(f"[ivf build n={n}] total={total:.2f}s  {parts}", flush=True)
+            mark.end()
+            if mark.timed:
+                print(mark.report(f"ivf build n={n}"), flush=True)
 
     def _pack_from_plan(self, xd, cent_np, order, sa, slot, cap: int, rcap: int) -> IVFState:
         cfg = self.cfg
@@ -1053,7 +1051,7 @@ class IVFIndex:
         passes nearly everything (utils/filter_policy.py)."""
         if filter_mode not in ("auto", "scan", "probe"):
             raise ValueError(f"invalid filter_mode {filter_mode!r}")
-        with self._lock:
+        with self._lock, entry("ivf.search"):
             self._flush_locked()
             if filter_mode == "auto":
                 filter_mode = resolve_filter_mode("auto", allowed, self._n_inserted, alt="probe")

@@ -25,9 +25,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import os
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -40,6 +38,7 @@ from ..ops.pq_scan import grouped_geometry, pq_grouped_scan_pairs
 from ..utils.config import _VALID_METRICS
 from ..utils.filter_policy import resolve_filter_mode
 from ..utils.masks import allowed_mask
+from ..utils.profiling import Stages, wait
 from .flat import masked_exact_search, resolve_device, tensor_from_numpy
 from .ivf import _assign, _ivf_range, _slot_pairs, split_oversized_device
 from .knn_graph import _kmeans_device
@@ -428,17 +427,10 @@ class IVFPQIndex:
     def build(self, x) -> None:
         """Bulk build on the device: PQ training, IVF k-means, assignment,
         the split of oversized clusters and the packed-code scatter. x may be
-        numpy or a tensor (on the index's device: no upload). With
+        numpy or a tensor (on the index's device: no upload). Its stages are
+        spans "ivfpq.build.<stage>" (utils.profiling.Stages); with
         ZVDB_BUILD_TRACE=1 it prints the time of each stage."""
-        trace = os.environ.get("ZVDB_BUILD_TRACE", "") not in ("", "0")
-        marks = [("start", time.perf_counter())]
-
-        def mark(name):
-            if trace:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                marks.append((name, time.perf_counter()))
-
+        mark = Stages(self.device, "ivfpq.build.")
         xd = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         n = xd.shape[0]
         with self._lock:
@@ -451,11 +443,12 @@ class IVFPQIndex:
                 return
             self._check_dim(xd)
             cfg = self.cfg
+            mark("pq-train")
             if cfg.metric == "cosine":
                 xd = xd / torch.clamp(torch.linalg.norm(xd, dim=1, keepdim=True), min=1e-12)
             cb, rot = self._train(xd)
             self._trained = True
-            mark("pq-train")
+            mark("kmeans")
 
             n_plan = max(n, cfg.expected_rows or 0)
             c = cfg.n_clusters or max(
@@ -463,14 +456,16 @@ class IVFPQIndex:
             c = min(c, max(8, n))
             cent = _kmeans_device(xd, c, cfg.ivf_kmeans_iters, self._gen,
                                   sample=min(n, cfg.kmeans_sample))
-            mark("kmeans")
+            mark("assign")
             xn = D.sq_norms(xd) if cfg.metric == "l2" else xd.new_zeros(n)
-            assign = _assign(xd, xn, cent, D.sq_norms(cent)).cpu().numpy().astype(np.int64)
-            mark("assign+pull")
+            assign = _assign(xd, xn, cent, D.sq_norms(cent))
+            with wait("ivf_assign_pull"):
+                assign = assign.cpu().numpy().astype(np.int64)
+            mark("split")
             cap_split = int(math.ceil(cfg.max_cluster_factor * max(n, 1) / c / 8.0)) * 8
             cap_split = max(cap_split, 8)
             cent_np, assign = split_oversized_device(xd, cent.cpu().numpy(), assign, cap_split)
-            mark("split")
+            mark("order")
             c2 = len(cent_np)
             max_count = int(np.bincount(assign, minlength=c2).max())
             grow = max(1.0, (cfg.expected_rows or 0) / n)
@@ -484,14 +479,11 @@ class IVFPQIndex:
             sa = assign[order].astype(np.int32)
             first = np.searchsorted(sa, np.arange(c2), side="left")
             slot = (np.arange(n) - first[sa]).astype(np.int32)
-            mark("order")
-            self.state = self._pack(xd, cent_np, order, sa, slot, c2, cap, cb, rot)
             mark("pack")
-            if trace:
-                total = marks[-1][1] - marks[0][1]
-                parts = "  ".join(f"{nm}={t1 - t0:.2f}s" for (_, t0), (nm, t1)
-                                  in zip(marks, marks[1:]))
-                print(f"[ivfpq build n={n}] total={total:.2f}s  {parts}", flush=True)
+            self.state = self._pack(xd, cent_np, order, sa, slot, c2, cap, cb, rot)
+            mark.end()
+            if mark.timed:
+                print(mark.report(f"ivfpq build n={n}"), flush=True)
 
     def _pack(self, xd, cent_np, order, sa, slot, c: int, cap: int, cb, rot,
               segment: int = 2_000_000) -> IVFPQState:

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -42,6 +41,7 @@ from ..ops import approx_topk as AK
 from ..ops import distance as D
 from ..ops import topk as T
 from ..ops.block_scan import block_bins
+from ..utils.profiling import Stages, wait
 from .build import _reverse_pass, _reverse_pass_bulk, select_neighbors
 from .flat import resolve_device
 from .ivf import _assign, _update_centroids
@@ -66,13 +66,18 @@ def _kmeans_device(xj: torch.Tensor, c: int, iters: int, gen: torch.Generator,
     n = xj.shape[0]
     xs = xj
     if n > sample:
-        xs = xj[torch.randperm(n, generator=gen)[:sample].to(xj.device)]
+        pick = torch.randperm(n, generator=gen)[:sample]
+        with wait("kmeans_sample"):   # pageable uploads
+            pick = pick.to(xj.device)
+        xs = xj[pick]
     m = xs.shape[0]
     if m < c:
         init = torch.randint(0, m, (c,), generator=gen)
     else:
         init = torch.randperm(m, generator=gen)[:c]
-    cent = xs[init.to(xj.device)].float()
+    with wait("kmeans_init"):
+        init = init.to(xj.device)
+    cent = xs[init].float()
     xn = D.sq_norms(xs)
     for _ in range(iters):
         a = _assign(xs, xn, cent, D.sq_norms(cent))
@@ -169,7 +174,10 @@ def _pack_core(assign: torch.Tensor, c: int, bcap: int, spill: int):
     block_occ = torch.zeros((c + 1, bcap), dtype=torch.int32, device=dev)
     block_occ[wp, wpos] = torch.where(keep, sr, 0)
     present = torch.zeros(n, dtype=torch.bool, device=dev)
-    present[sp[keep].long()] = True
+    with wait("pack_present"):   # a boolean mask's size
+        kept = sp[keep]
+    with wait("pack_present"):   # a host scalar written into device rows
+        present[kept.long()] = True
     n_missing = (~present).sum().to(torch.int32)
     # absent points first, grouped by their rank-0 cluster (stable)
     morder = _stable_order(present.to(torch.int32), assign[:, 0]).to(torch.int32)
@@ -336,9 +344,18 @@ def build_knn_graph(
     try:
         req = next(steps)
         while True:
-            req = steps.send(tuple(a.cpu().numpy() for a in req))
+            req = steps.send(_pull(req))
     except StopIteration as e:
         return e.value
+
+
+def _pull(req) -> tuple:
+    """A build generator's request, pulled to the host: one wait a tensor."""
+    out = []
+    for a in req:
+        with wait("build_pull"):
+            out.append(a.cpu().numpy())
+    return tuple(out)
 
 
 def build_knn_graph_multi(xs, degree: int, gens, devices=None, precision: str = "high",
@@ -375,7 +392,7 @@ def build_knn_graph_multi(xs, degree: int, gens, devices=None, precision: str = 
                 reqs.append((i, next(steps[i]) if sent is None else steps[i].send(sent)))
             except StopIteration as e:
                 results[i] = e.value
-        pending = [(i, tuple(a.cpu().numpy() for a in req)) for i, req in reqs]
+        pending = [(i, _pull(req)) for i, req in reqs]
     return results
 
 
@@ -408,8 +425,11 @@ def _build_steps(
     """Generator form of the graph build: yields tuples of tensors at each
     point where the host needs their values, and expects them back as numpy
     through send() (a multi-shard caller can dispatch other shards' work
-    before it pulls). With ZVDB_BUILD_TRACE=1 it prints each stage's time,
-    synchronizing the device between stages.
+    before it pulls). Its stages are spans "build.<stage>"
+    (utils.profiling.Stages: kmeans, assign, pack, block_knn each pass;
+    reps, prune, reverse, chain, long_edges); with ZVDB_BUILD_TRACE=1 it
+    prints each stage's seconds summed over the passes, synchronizing the
+    device between stages.
 
     segments: optional list of tensors whose concatenation is the corpus:
     pass 0 clusters on segment 0 and assigns segment by segment, so that on
@@ -422,15 +442,6 @@ def _build_steps(
     block capacity bcap, cc blocks per chunk, c_blocks per pass
     (presence-overflow blocks included) and the last pass's first chunk of
     block rows (first_chunk)."""
-    trace = os.environ.get("ZVDB_BUILD_TRACE", "") not in ("", "0")
-    marks = [("start", time.perf_counter())]
-
-    def mark(name, sync=True):
-        if trace:
-            if sync and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            marks.append((name, time.perf_counter()))
-
     def norms_of(t):
         return D.sq_norms(t) if metric == "l2" else \
             torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
@@ -450,6 +461,7 @@ def _build_steps(
         if n <= max(degree + 1, 32):
             return _tiny_graph(xj, xn, n, degree, metric, precision)
 
+    mark = Stages(dev, "build.")
     block = int(min(block, max(64, n)))
     kc = min(kc_per_view if kc_per_view > 0 else degree, block - 1)
     o_total = passes * spill
@@ -461,11 +473,12 @@ def _build_steps(
     centroids = c_norms = c_rows = chain_t = None
     for p in range(passes):
         c = max(1, int(round(n * spill / block)))
+        mark("kmeans")
         if p == 0 and segments is not None:
             seg0 = segments[0].float()
             centj = _kmeans_device(seg0, c, kmeans_iters, gen,
                                    sample=min(int(seg0.shape[0]), kmeans_sample))
-            mark("p0:kmeans", sync=False)   # a sync would stall the overlap
+            mark("assign", sync=False)   # a sync would stall the overlap
             cn = norms_of(centj)
             per_seg = []
             for seg in segments:
@@ -483,13 +496,13 @@ def _build_steps(
                 s0n = np.concatenate(pulled[1::2], axis=0)
         else:
             centj = _kmeans_device(xj, c, kmeans_iters, gen, sample=min(n, kmeans_sample))
-            mark(f"p{p}:kmeans")
+            mark("assign")
             cn = norms_of(centj)
             assign, s0 = _assign_spill(xj, xn, centj, cn, min(spill, c), metric,
                                        precision=precision)
             if pack != "device":
                 assign_np, s0n = yield (assign, s0)
-        mark(f"p{p}:assign+pull")
+        mark("pack")
         bcap = max(8, int(math.ceil(balance_slack * spill * n / c / 8.0)) * 8)
         bcap = min(bcap, n * spill)
         cc = max(1, (1 << 25) // max(bcap * bcap, 1))
@@ -506,15 +519,20 @@ def _build_steps(
                 rows = -(-nm // bcap)
                 extra = np.full((rows, bcap), -1, np.int32)
                 extra.reshape(-1)[:nm] = morder_np[:nm]
-                bp = torch.cat([bp, torch.from_numpy(extra).to(dev)])
+                with wait("pack_overflow"):   # a pageable upload
+                    extra_t = torch.from_numpy(extra).to(dev)
+                bp = torch.cat([bp, extra_t])
                 bo = torch.cat([bo, torch.zeros((rows, bcap), dtype=torch.int32, device=dev)])
         else:
             if assign_np.shape[1] < spill:
                 assign_np = np.pad(assign_np, ((0, 0), (0, spill - assign_np.shape[1])),
                                    mode="edge")
             bp_np, bo_np, _dropped = _pack_blocks(assign_np, c, bcap)
-            bp, bo = torch.from_numpy(bp_np).to(dev), torch.from_numpy(bo_np).to(dev)
-        mark(f"p{p}:host-pack")
+            with wait("pack_upload"):
+                bp = torch.from_numpy(bp_np).to(dev)
+            with wait("pack_upload"):
+                bo = torch.from_numpy(bo_np).to(dev)
+        mark("block_knn")
         # chunks of cc blocks keep the [cc, B, B] score work ~2^25 entries;
         # the last chunk holds what is left (JAX pads it to cc empty blocks
         # for a static shape, which at a small n means thousands of them)
@@ -525,9 +543,9 @@ def _build_steps(
             _block_knn_scatter(xj, xn, bp[lo:lo + cc], bo[lo:lo + cc], p * spill, cand_s, cand_i,
                                kc, metric, sel=block_topk, precision=precision)
         del bp, bo
-        mark(f"p{p}:block-knn")
 
         if p == passes - 1:
+            mark("reps")
             centroids, c_norms = centj, cn
             # representative rows and the cluster chain (see
             # _reps_chain_device): the chain gives every point an in-edge
@@ -537,13 +555,15 @@ def _build_steps(
                 c_rows, chain_t = _reps_chain_device(assign[:, 0], s0, c, reps)
             else:
                 c_rows_np, chain_np = _reps_chain_host(assign_np[:, 0], s0n, c, reps)
-                c_rows = torch.from_numpy(c_rows_np).to(dev)
-                chain_t = torch.from_numpy(chain_np).to(dev)
-            mark("reps")
+                with wait("reps_upload"):
+                    c_rows = torch.from_numpy(c_rows_np).to(dev)
+                with wait("reps_upload"):
+                    chain_t = torch.from_numpy(chain_np).to(dev)
 
     # ---- merge + prune: occurrence lanes flattened; the final chunk re-covers the tail
     cand_s = cand_s.reshape(n + 1, o_total * kc)
     cand_i = cand_i.reshape(n + 1, o_total * kc)
+    mark("prune")
     nbrs = torch.full((n + 1, degree), -1, dtype=torch.int32, device=dev)
     dists = torch.full((n + 1, degree), _INF, dtype=torch.float32, device=dev)
     pc = min(prune_chunk, n)
@@ -555,10 +575,10 @@ def _build_steps(
         nbrs[lo:lo + pc] = sel
         dists[lo:lo + pc] = sel_d
     del cand_s, cand_i
-    mark("prune")
 
     # ---- reverse edges
     if reverse:
+        mark("reverse")
         if n * degree <= (1 << 25) and not os.environ.get("ZVDB_OLD_REVERSE"):
             nbrs, dists = _reverse_pass_bulk(nbrs, dists, n_rows=n, degree=degree)
         else:
@@ -568,25 +588,23 @@ def _build_steps(
                 rows = torch.arange(lo, lo + rc, dtype=torch.int32, device=dev)
                 _reverse_pass(nbrs, dists, rows, nbrs[lo:lo + rc].clone(),
                               dists[lo:lo + rc].clone(), degree)
-        mark("reverse")
 
     # ---- chain edges (the slot before the long-range block)
     if chain and n > degree + 1 and degree - n_long >= 2:
-        _stamp_chain_edges(xj, xn, nbrs, dists, chain_t, metric, slot=degree - n_long - 1)
         mark("chain")
+        _stamp_chain_edges(xj, xn, nbrs, dists, chain_t, metric, slot=degree - n_long - 1)
 
     # ---- random long-range edges (after the reverse pass, whose distance
     # merges would evict them)
+    mark("long_edges")
     if n_long > 0 and n > degree + 1:
-        ids = torch.randint(0, n, (n, n_long), generator=gen, dtype=torch.int32).to(dev)
+        ids = torch.randint(0, n, (n, n_long), generator=gen, dtype=torch.int32)
+        with wait("long_edges"):   # a pageable upload
+            ids = ids.to(dev)
         _stamp_long_edges(xj, xn, nbrs, dists, ids, metric, precision=precision)
-    mark("long-edges")
-
-    if trace:
-        total = marks[-1][1] - marks[0][1]
-        parts = "  ".join(f"{name}={t1 - t0:.2f}s"
-                          for (_, t0), (name, t1) in zip(marks, marks[1:]))
-        print(f"[build_knn_graph n={n}] total={total:.2f}s  {parts}", flush=True)
+    mark.end()
+    if mark.timed:
+        print(mark.report(f"build_knn_graph n={n}"), flush=True)
     return nbrs, dists, centroids, c_norms, c_rows
 
 

@@ -7,11 +7,15 @@ ops/distance.py); invalid entries carry +inf and ids carry -1.
 order and may pick any of several entries tied at the k-th score, so the
 selection is repaired here: rows with such a finite tie are re-selected by
 a stable sort, and the result is ordered by (score, position). Among +inf
-entries the pick stays torch's; every caller maps those to id -1.
+entries the pick stays torch's; every caller maps those to id -1. Finding
+the tied rows is a `nonzero`, whose size the host needs: each call waits
+once for the device (utils.profiling.wait, site "topk_ties").
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import wait
 
 
 def smallest_k_dense(scores: torch.Tensor, k: int):
@@ -23,8 +27,9 @@ def smallest_k_dense(scores: torch.Tensor, k: int):
     vals, pos = torch.topk(flat, k, dim=-1, largest=False, sorted=False)
     if k:
         kth = vals.amax(dim=-1, keepdim=True)
-        tied = (((flat == kth).sum(-1) > (vals == kth).sum(-1))
-                & torch.isfinite(kth[:, 0])).nonzero()[:, 0]
+        tie = ((flat == kth).sum(-1) > (vals == kth).sum(-1)) & torch.isfinite(kth[:, 0])
+        with wait("topk_ties"):
+            tied = tie.nonzero()[:, 0]
         if tied.numel():   # a boundary tie: take the lowest positions, as lax.top_k does
             sv, sp = torch.sort(flat[tied], dim=-1, stable=True)
             vals[tied], pos[tied] = sv[:, :k], sp[:, :k]

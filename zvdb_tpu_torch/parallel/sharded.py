@@ -34,7 +34,6 @@ sharded build neither reorders rows diversity-first nor sets an int8 scale
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
@@ -49,27 +48,16 @@ from ..index.hnsw import (
     state_to_numpy,
 )
 from ..ops import topk as T
+from ..utils.profiling import span
 from ..utils.config import HNSWConfig, SearchConfig
 from .mesh import DATA_AXIS, SHARD_AXIS, make_mesh
 
 _INF = float("inf")
 
 
-@contextlib.contextmanager
-def _span(recorder, name: str):
-    """A profiler range named "zvdb <name>" and, with a recorder
-    (utils.profiling.PhaseRecorder), a synced phase of that name."""
-    with torch.profiler.record_function(f"zvdb {name}"):
-        if recorder is None:
-            yield
-        else:
-            with recorder.phase(name):
-                yield
-
-
 def merge_span(recorder):
-    """The span of a sharded search's merge."""
-    return _span(recorder, "merge")
+    """The span of a sharded search's merge (utils.profiling.span)."""
+    return span("merge", recorder)
 
 
 def run_shards(mesh, local, shard_args, q: torch.Tensor, recorder=None,
@@ -82,7 +70,7 @@ def run_shards(mesh, local, shard_args, q: torch.Tensor, recorder=None,
     slices (B % n_data must be 0, as JAX's shard_map requires), each run
     over every shard, and the slices concatenated back in order;
     split_data=False (JAX's replicated P() spec) runs the whole batch once.
-    Each call runs in a span named "shard <s>" (see _span)."""
+    Each call runs in a span named "shard <s>" (utils.profiling.span)."""
     n_data, n_shards = mesh.shape[DATA_AXIS] if split_data else 1, mesh.shape[SHARD_AXIS]
     b = q.shape[0]
     if b % n_data:
@@ -95,7 +83,7 @@ def run_shards(mesh, local, shard_args, q: torch.Tensor, recorder=None,
         qr = q[r * bl:(r + 1) * bl]
         outs = []
         for si in range(n_shards):
-            with _span(recorder, f"shard {si}"):
+            with span(f"shard {si}", recorder):
                 out = local(si, *shard_args[si], qr.to(mesh.shard_device(si)))
             outs.append([o.to(merge) for o in out])
         rows.append([torch.stack(parts, dim=1) for parts in zip(*outs)])
