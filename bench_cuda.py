@@ -42,6 +42,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -52,6 +53,7 @@ from zvdb_tpu_torch import (HNSW, CagraConfig, CagraIndex, FlatConfig, FlatIndex
 from zvdb_tpu_torch.bench.harness import (_block_until_ready, _sync, ground_truth_host,
                                           recall_at_k)
 from zvdb_tpu_torch.io.datasets import load_dataset, synthetic_clustered
+from zvdb_tpu_torch.index.cagra import anchor_count, seed_route
 from zvdb_tpu_torch.index.ivf import use_pair_scan
 from zvdb_tpu_torch.ops import approx_topk as AK
 from zvdb_tpu_torch.ops import block_scan as BS
@@ -241,11 +243,39 @@ def graph_build_launches(idx):
     return sum(-(-cb // st["cc"]) for cb in st["c_blocks"])
 
 
-def cagra_seed_launches(idx):
-    """approx_min_k launches of one CAGRA search call: the seed anchors,
-    when seed_approx and anchors > 4 * n_seeds."""
+def pass_sizes(nq, batch):
+    """The queries of each search call of one pass over nq queries."""
+    return [min(batch, nq - lo) for lo in range(0, nq, batch)]
+
+
+def cagra_seed_launches(idx, sizes):
+    """Kernel launches of CAGRA search calls of `sizes` queries each for
+    their seed anchors (index/cagra.py:seed_route): approx_min_k once a call
+    unless the seeds are exact, and kernel A on the tensor cores once a call
+    that takes the "bins" route."""
     a = idx.state.anchors.shape[0]
-    return int(idx.cfg.seed_approx and a > 4 * min(idx.cfg.n_seeds, a))
+    routes = [seed_route(b, a, idx.cfg.n_seeds, idx.cfg.seed_approx, idx.cfg.precision,
+                         idx.state.anchors.is_cuda) for b in sizes]
+    bins = routes.count("bins")
+    return {"approx": len(routes) - routes.count("exact"), "A": bins, "A_mma": bins}
+
+
+def cagra_rows_seed_bins(results, n, nq, n1, d, metric, device):
+    """Kernel A launches of `run`'s two CAGRA rows for their seed bins, as
+    each row's check_launches held it: cagra_1m's recall pass and 2 x 3
+    timed passes over nq queries in batches of 5000; cagra's ef sweep on
+    2048 queries up to the ef it chose (results["cagra"]["ef"]) and its
+    2 x 3 timed passes."""
+    def bins(cfg, rows, sizes):
+        anchors = torch.empty(anchor_count(rows, cfg.n_anchors), 0, device=device)
+        idx = types.SimpleNamespace(cfg=cfg, state=types.SimpleNamespace(anchors=anchors))
+        return cagra_seed_launches(idx, sizes)["A"]
+
+    ef = results["cagra"]["ef"]
+    sweep = CAGRA_EFS.index(ef) + 1 if ef in CAGRA_EFS else len(CAGRA_EFS)
+    return (bins(cagra_1m_config(n1, d, metric), n1, pass_sizes(nq, 5000) * (1 + 2 * 3))
+            + bins(cagra_config(d, metric), n,
+                   [min(2048, nq)] * sweep + pass_sizes(nq, 5000) * (2 * 3)))
 
 
 def ivf_search_launches(idx, b, nprobe, k, rerank=0):
@@ -352,7 +382,8 @@ def _graph_row(name, factory, efs, ef_fallback, reps, x, q, gt, k, device):
     """The cagra and hnsw rows: a warm build, two host-corpus and two
     device-row builds, the ef sweep on the first 2048 queries, QPS in
     batches of 5000. approx_min_k runs in each build's block cut and, for
-    CAGRA, in each search call's seeds."""
+    CAGRA, in each search call's seeds (with kernel A's bins in a large
+    batch's, `cagra_seed_launches`)."""
     n = x.shape[0]
     before = kernel_counts()
     builds = []                        # approx_min_k launches of each build
@@ -366,10 +397,9 @@ def _graph_row(name, factory, efs, ef_fallback, reps, x, q, gt, k, device):
     xd = to_device(x, device)
     dev_s, dev_runs, _ = timed_builds(factory, lambda i: i.build(xd), n, device, tally)
     del xd
-    seeds = cagra_seed_launches(idx) if isinstance(idx, CagraIndex) else 0
-    best_ef, calls = None, 0
+    best_ef, sizes = None, []          # the queries of each search call
     for ef in efs:
-        calls += 1
+        sizes.append(min(2048, q.shape[0]))
         r = recall_at_k(idx.search(q[:2048], k, ef_search=ef)[1].cpu().numpy(), gt[:2048], k)
         log(f"{name} ef={ef} recall={r:.4f}")
         if r >= TARGET_RECALL:
@@ -379,9 +409,11 @@ def _graph_row(name, factory, efs, ef_fallback, reps, x, q, gt, k, device):
         best_ef, recall = ef_fallback, r
     qps, qps_runs = timed_qps(lambda qq: idx.search(qq, k, ef_search=best_ef), q, 5000,
                               reps=reps, device=device)
-    calls += 2 * reps * -(-q.shape[0] // 5000)
-    check_launches(name, device, before, {"approx": sum(builds) + seeds * calls})
-    log(f"{name}: approx_min_k per build {builds}, per search call {seeds} "
+    sizes += pass_sizes(q.shape[0], 5000) * (2 * reps)
+    seeds = cagra_seed_launches(idx, sizes) if isinstance(idx, CagraIndex) else {}
+    check_launches(name, device, before,
+                   {**seeds, "approx": sum(builds) + seeds.get("approx", 0)})
+    log(f"{name}: approx_min_k per build {builds}, in its {len(sizes)} search calls {seeds} "
         "(block_topk='approx'; kernel D did not run)")
     log(f"{name}: recall={recall:.4f} qps={qps:,.0f} "
         f"build={n/dev_s:,.0f} pts/s device-resident "
@@ -391,11 +423,18 @@ def _graph_row(name, factory, efs, ef_fallback, reps, x, q, gt, k, device):
                 build_runs_pps_hostcorpus=host_runs)
 
 
+CAGRA_EFS = (12, 16, 24, 32, 48, 64, 96)   # the cagra row's ef sweep
+
+
+def cagra_config(d, metric):
+    return CagraConfig(dim=d, degree=32, metric=metric)
+
+
 def row_cagra(x, q, gt, k, metric="l2", device="cuda"):
     d = x.shape[1]
     return _graph_row(
-        "cagra", lambda: CagraIndex(CagraConfig(dim=d, degree=32, metric=metric), device=device),
-        (12, 16, 24, 32, 48, 64, 96), 128, 3, x, q, gt, k, device)
+        "cagra", lambda: CagraIndex(cagra_config(d, metric), device=device),
+        CAGRA_EFS, 128, 3, x, q, gt, k, device)
 
 
 def row_hnsw(x, q, gt, k, metric="l2", device="cuda"):
@@ -466,19 +505,21 @@ def row_ivfpq_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
                 nprobe=npb, rerank=rrb)
 
 
+def cagra_1m_config(n1, d, metric):
+    return CagraConfig(dim=d, degree=32, metric=metric, n_anchors=min(262144, n1 // 4),
+                       search_degree=24, max_iters=4, ef_search=12)
+
+
 def row_cagra_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
     """CAGRA at 1M: ef 12, search_degree 24, 4 hops, 262,144-capped anchors;
-    QPS in batches of 5000 (the [5000, n_anchors] seed product)."""
+    QPS in batches of 5000 (kernel A's [5000, L] seed bins)."""
     n1, d = x1.shape
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
 
     def cg1_factory():
-        return CagraIndex(CagraConfig(
-            dim=d, degree=32, metric=metric,
-            n_anchors=min(262144, n1 // 4),
-            search_degree=24, max_iters=4, ef_search=12), device=device)
+        return CagraIndex(cagra_1m_config(n1, d, metric), device=device)
 
     before = kernel_counts()
     builds = []                        # approx_min_k launches of each build
@@ -500,8 +541,8 @@ def row_cagra_1m(x1, q1, gt1, k, metric="l2", device="cuda"):
     fn = lambda qq: cg1.search(qq, k, ef_search=12)
     rg = recall_at_k(search_ids(fn, q1, 5000), gt1, k)
     qpsg, qpsg_runs = timed_qps(fn, q1, 5000, reps=3, device=device)
-    seeds = cagra_seed_launches(cg1) * search_calls(q1.shape[0], 5000, 3)
-    check_launches("cagra_1m", device, before, {"approx": sum(builds) + seeds})
+    seeds = cagra_seed_launches(cg1, pass_sizes(q1.shape[0], 5000) * (1 + 2 * 3))
+    check_launches("cagra_1m", device, before, {**seeds, "approx": sum(builds) + seeds["approx"]})
     log(f"cagra_1m: approx_min_k per build {builds}, {seeds} in search (the seed anchors; "
         "block_topk='approx', kernel D did not run)")
     if cuda:

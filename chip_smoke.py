@@ -109,9 +109,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                   all of them on the tensor cores, a traced build's
                   stages) and searched in batches of 2048
                   (recall@10 >= 0.95, approx_min_k once a batch for the
-                  seed anchors and no other kernel, an ef sweep); kernel D
-                  on the build's own first chunk against
-                  its plain version in every precision;
+                  seed anchors over kernel A's bins, A once a batch on the
+                  tensor cores, no other kernel, an ef sweep); kernel A
+                  on the index's own seed operand (a batch of 2048 by the
+                  250,000 anchors at approx_min_k's L) against its plain
+                  version at "high" and "default"; kernel D on the
+                  build's own first chunk against its plain version in
+                  every precision;
  15. cagra server - a SearchServer over the CAGRA index, as in phase 5
                   (answers may differ from the batched search on near-ties
                   only: cuBLAS picks its kernels by batch size);
@@ -339,8 +343,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   cores), D on shard 0's own first chunk against its plain
                   version in every precision; searched in batches of 2048
                   (recall@10 >= 0.95 beside phase 14's, QPS, per-shard and
-                  merge ms, a traced batch, approx_min_k once a shard a
-                  call for the seed anchors, no other kernel); 1% removed
+                  merge ms, a traced batch, approx_min_k and kernel A
+                  once a shard a call for the seed anchors, no other
+                  kernel), kernel A on shard 0's seed operand against its
+                  plain version as in phase 14; 1% removed
                   (none comes back), a 10% allowlist in "scan" (against the
                   exact FlatIndex with the same tombstones, up to ties) and
                   "beam"; the last 1% inserted in requests of 100 into a
@@ -363,14 +369,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                   recall@10 >= 0.99 on flat_1m and flat_1m_pallas and, on
                   flat, approx_min_k's expected selection recall less 4
                   standard errors; kernels A and B (launches_mma) and the
-                  pair scan (launches) risen by their rows' search calls,
+                  pair scan (launches) risen by their rows' search calls
+                  (A also by the CAGRA rows' seed bins,
+                  bench_cuda.cagra_rows_seed_bins),
                   approx_min_k by what each row checked, C, D, E and F not
                   at all;
  40. approx     - approx_min_k (ops/approx_topk.py, csrc/approx_topk.cu)
                   against its plain version, positions and value bits
                   equal, over a grid (ties, +-0.0, +inf rows, N <= 128,
                   k = L = N, rank 3, rows whose windows split over blocks,
-                  L up to 11,776) and at eight sites' operands at full size,
+                  L up to 11,776) and at nine site operands at full size
+                  (CAGRA's seeds twice: the [B, A] scores and the bins),
                   each timed beside torch.topk and smallest_k_dense with its
                   byte bound; bench.py's flat row (100k x 128d, 10,000
                   queries in one batch) as the main path: one launch,
@@ -380,7 +389,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   way; then each site's launches where JAX's guard holds
                   and none where it fails (flat tiles and two-pass,
                   ShardedFlat, the PQ and sharded PQ decode scans, IVF's
-                  probes and pair cut, CAGRA's block cut and seeds).
+                  probes and pair cut, CAGRA's block cut and seeds, with
+                  kernel A's bins under them at "high" and not at
+                  "highest").
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -1913,6 +1924,36 @@ def check_approx(ctx: Ctx, label: str, got: int, want: int):
         raise AssertionError(f"{label}: approx_min_k launched {got} times, expected {want}")
 
 
+def check_seed_launches(ctx: Ctx, label: str, before: dict, after: dict, want: dict):
+    """CAGRA searches between the counts `before` and `after` must have
+    launched what bench_cuda.cagra_seed_launches expects of their seed
+    anchors (approx_min_k, and kernel A on the tensor cores where the
+    batch takes the "bins" route) and no other kernel."""
+    got = {k: after[k] - before[k] for k in after}
+    check_approx(ctx, label, got["approx"], want["approx"])
+    others = besides_approx(got)
+    ctx.report(f"{label} other kernel launches", f"{others} (expected A and A_mma "
+               f"{want['A']})")
+    if others != besides_approx(want):
+        raise AssertionError(f"{label}: kernels launched {got}, expected {want}")
+
+
+def compare_seed_bins(ctx: Ctx, label: str, q, anchors, a_norms, n_seeds: int, metric: str):
+    """Kernel A on a CAGRA index's own seed operand (index/cagra.py:
+    _binned_seeds: the anchor table folded into approx_min_k's L bins)
+    against its plain version, at both tensor-core precisions."""
+    from zvdb_tpu_torch.ops import approx_topk as AK
+    from zvdb_tpu_torch.ops import distance as D
+
+    a = anchors.shape[0]
+    L = AK.reduction_output_size(a, 2, min(n_seeds, a), 0.95)
+    qp = D.preprocess_queries(torch.as_tensor(q, device=anchors.device), metric)
+    errs = {p: compare_case(ctx, f"{label} seed bins [{qp.shape[0]}, {a}] L={L} {p}", qp,
+                            anchors, a_norms, L, metric, p) for p in ("high", "default")}
+    ctx.report(f"{label} seed bins [{qp.shape[0]}, {a}] L={L} max |kernel A - plain| by "
+               "precision", errs)
+
+
 def binned_plain(s, k, recall_target=0.95):
     """The kernel's function in plain PyTorch at the operand's own L:
     what approx_min_k computes on the card, on any device; counts nothing."""
@@ -2006,14 +2047,15 @@ def phase_cagra_main(ctx: Ctx, x1, q1, gt):
                              or after_build["approx"]):
         raise AssertionError(f"build launched {after_build}, expected D == D_mma == {expected} "
                              "only")
-    # search: approx_min_k selects the seed anchors, once a batch (A > 4 * n_seeds)
-    if besides_approx(after_search) != besides_approx(after_build):
-        raise AssertionError(f"search launched kernels: {after_build} -> {after_search}")
-    check_approx(ctx, f"cagra_1m search ({n_batches} batches)",
-                 after_search["approx"] - after_build["approx"],
-                 n_batches * BC.cagra_seed_launches(idx))
+    # search: approx_min_k selects the seed anchors, once a batch (A > 4 * n_seeds),
+    # over kernel A's bins in a batch of SEED_BINS_MIN_QUERIES or more
+    check_seed_launches(ctx, f"cagra_1m search ({n_batches} batches)", after_build,
+                        after_search, BC.cagra_seed_launches(idx, BC.pass_sizes(
+                            q1.shape[0], ctx.batch)))
     if rec < 0.95:
         raise AssertionError(f"cagra_1m recall@10 {rec} < 0.95")
+    compare_seed_bins(ctx, "cagra_1m", q1[:ctx.batch], idx.state.anchors, idx.state.a_norms,
+                      cfg.n_seeds, cfg.metric)
     for ef in (16, 24):
         ctx.report(f"cagra_1m recall@10 (ef={ef})",
                    recall_at_k(batched_ids(ctx, idx, q1, ef_search=ef), gt, K))
@@ -4629,16 +4671,18 @@ def phase_sharded_cagra(ctx: Ctx, x1, q1, gt, cagra_recall: float):
     shard_times(ctx, idx, q1, "sharded_cagra_1m", **CAGRA_SEARCH)
     trace_split(ctx, f"sharded_cagra_1m one traced batch of {ctx.batch}",
                 lambda: idx.search(q1[:ctx.batch], K, **CAGRA_SEARCH))
-    if besides_approx(kernel_counts()):
-        raise AssertionError(f"sharded_cagra_1m search launched kernels: {kernel_counts()}")
-    # approx_min_k selects each shard's seed anchors: 5 passes over q1 and one batch
-    n_batches = -(-q1.shape[0] // ctx.batch)
-    seeds = sum(BC.cagra_seed_launches(types.SimpleNamespace(state=st, cfg=idx.cfg))
-                for st in idx.state)
-    check_approx(ctx, "sharded_cagra_1m search", kernel_counts()["approx"],
-                 (5 * n_batches + 1) * seeds)
+    # approx_min_k selects each shard's seed anchors (over kernel A's bins in a
+    # large batch): 5 passes over q1 and one batch
+    sizes = BC.pass_sizes(q1.shape[0], ctx.batch) * 5 + [ctx.batch]
+    seeds = [BC.cagra_seed_launches(types.SimpleNamespace(state=st, cfg=idx.cfg), sizes)
+             for st in idx.state]
+    check_seed_launches(ctx, "sharded_cagra_1m search", dict.fromkeys(kernel_counts(), 0),
+                        kernel_counts(), {k: sum(s[k] for s in seeds) for k in seeds[0]})
     if rec < 0.95:
         raise AssertionError(f"sharded_cagra_1m recall@10 {rec} < 0.95")
+    st = idx.state[0]
+    compare_seed_bins(ctx, "sharded_cagra_1m shard 0", q1[:ctx.batch], st.anchors, st.a_norms,
+                      idx.cfg.n_seeds, idx.cfg.metric)
 
     # remove 1%, then a 10% allowlist: "scan" against the exact FlatIndex
     # with the same tombstones (up to ties), "beam" by its recall
@@ -4867,8 +4911,10 @@ def phase_bench_cuda(ctx: Ctx):
                                  f"{bar}")
     calls = 0 if ctx.rehearse else BC.search_calls(nq, 2048, 6)
     want = {name: 0 for name in counts}
-    # each row checked its own approx_min_k count (bench_cuda.check_launches)
-    want.update(A=calls, A_mma=calls, B=calls, B_mma=calls, C_pairs=calls,
+    # each row checked its own approx_min_k count (bench_cuda.check_launches);
+    # kernel A also folds the CAGRA rows' seed bins
+    bins = BC.cagra_rows_seed_bins(engines, n, nq, n1, 128, "l2", ctx.device)  # sift1m's
+    want.update(A=calls + bins, A_mma=calls + bins, B=calls, B_mma=calls, C_pairs=calls,
                 approx=counts["approx"])
     if counts != want or not (ctx.rehearse or counts["approx"]):
         raise AssertionError(f"bench_cuda kernel launches {counts}, expected {want}")
@@ -4907,7 +4953,8 @@ APPROX_SITES_AT_SIZE = [
     ("flat row tile", (10_000, 100_000), 10, 0.97),
     ("flat_1m first-pass tile", (2048, 500_000), 40, 0.97),
     ("sharded_flat_1m shard", (2048, 250_000), 10, 0.95),
-    ("cagra_1m seed anchors", (2048, 250_000), 16, 0.95),
+    ("cagra_1m seed anchors, [B, A] route", (2048, 250_000), 16, 0.95),
+    ("cagra_1m seed bins", (2048, 512), 16, 1.0),
     ("IVF probes at C = 4096", (2048, 4096), 8, 0.95),
     ("ivf_1m pair-scan cut (B*P x cap)", (4096, 2456), 10, 0.95),
     ("knn_graph block chunk (cagra_1m build)", (12, 1640, 1640), 16, 0.95),
@@ -4919,7 +4966,9 @@ APPROX_SITES_AT_SIZE = [
 # PERF.md's row H (its first run; its final call)
 OLD_H_MS = {"flat row tile": "1.6046-1.6065; 1.6043-1.6047",
             "flat_1m first-pass tile": "1.750; 1.7475", "sharded_flat_1m shard": "0.7745; 0.7672",
-            "cagra_1m seed anchors": "0.8041; 0.8012", "IVF probes at C = 4096": "0.0697; 0.0548",
+            "cagra_1m seed anchors, [B, A] route": "0.8041; 0.8012",
+            "cagra_1m seed bins": "not measured (no such operand then)",
+            "IVF probes at C = 4096": "0.0697; 0.0548",
             "ivf_1m pair-scan cut (B*P x cap)": "0.1116; 0.1104",
             "knn_graph block chunk (cagra_1m build)": "0.4677; 0.4648",
             "PQ decode-scan tile (rerank 12)": "0.5988; 0.595"}
@@ -5174,12 +5223,15 @@ def phase_approx(ctx: Ctx, x1, q1, gt):
     # each site: launched where JAX's guard holds, not where it fails
     qb = q1[:ctx.batch]
 
-    def launched(call):
+    def launched(call, others=None):
+        """approx_min_k's launches in `call`, which may launch no other kernel
+        than the counts `others` names."""
         reset_kernel_counts()
         call()
         ctx.sync()
-        if besides_approx(kernel_counts()):
-            raise AssertionError(f"approx site check launched other kernels: {kernel_counts()}")
+        if besides_approx(kernel_counts()) != (others or {}):
+            raise AssertionError(f"approx site check launched other kernels: {kernel_counts()}"
+                                 f", expected {others or {}}")
         return kernel_counts()["approx"]
 
     # 1. the flat tiled scan: tiles of 32768 (the last padded), the two-pass path
@@ -5241,8 +5293,15 @@ def phase_approx(ctx: Ctx, x1, q1, gt):
                  f"blocks, cc {cg.build_stats['cc']})", built, BC.graph_build_launches(cg))
     if not ctx.rehearse and not built:
         raise AssertionError("site 6: the CAGRA build launched approx_min_k no time")
-    check_approx(ctx, f"site 7 CAGRA seeds ({cg.state.anchors.shape[0]} anchors)", launched(
-        lambda: cg.search(qb, K)), BC.cagra_seed_launches(cg))
+    seeds = BC.cagra_seed_launches(cg, [qb.shape[0]])
+    others = besides_approx(seeds)
+    check_approx(ctx, f"site 7 CAGRA seeds ({cg.state.anchors.shape[0]} anchors, kernel A "
+                 f"{others})", launched(lambda: cg.search(qb, K), others), seeds["approx"])
+    if not ctx.rehearse and not others:
+        raise AssertionError(f"site 7: a batch of {qb.shape[0]} took no kernel A bins")
+    cg.cfg = dataclasses.replace(ccfg, precision="highest")
+    check_approx(ctx, "site 7 CAGRA seeds at \"highest\" (no bins)", launched(
+        lambda: cg.search(qb, K)), 1)
     cg.cfg = dataclasses.replace(ccfg, seed_approx=False)
     check_approx(ctx, "site 7 CAGRA seeds, seed_approx=False", launched(
         lambda: cg.search(qb, K)), 0)

@@ -3,6 +3,7 @@
 
     python3 flat_tile_sweep.py                  # the variants in VARIANTS
     python3 flat_tile_sweep.py NAME=WQ,MT,STAGES/WQ,MT,STAGES/UNROLL ...
+    python3 flat_tile_sweep.py --seeds          # CAGRA's two seed routes
 
 Each variant rewrites the Tile constants of zvdb_tpu_torch/csrc/flat_scan_mma.cu
 for "default" / "high" (warps along the queries, m16 tiles per warp, raw
@@ -14,6 +15,15 @@ times "default" and "high" at B=2048, N=1M, D=128, L=1024 on a seeded normal
 corpus with CUDA events (100 calls each), beside the CUDA-core kernel
 (csrc/flat_scan.cu, 20 calls) and the f32 and bf16 torch.matmul yardsticks.
 The engines never run it. Without a CUDA device it exits 1.
+
+--seeds times CAGRA's two routes to its seed anchors (index/cagra.py:
+seed_route) with CUDA events, 20 calls each, over B = 16 ... 2048 queries and
+A = 250,000 (cagra_1m's anchors), 32,768 (a 250,000-row shard's default
+anchors) and 8,192 (a 100,000-row index's) at n_seeds 16, D = 128, "high" and
+"default": "approx" (the [B, A] product, then approx_min_k's kernel over it)
+and "bins" (kernel A's bins, then approx_min_k's kernel over them). Beside
+each pair it prints the share of equal seeds and the largest score gap;
+SEED_BINS_MIN_QUERIES in index/cagra.py is read off this table.
 """
 from __future__ import annotations
 
@@ -83,6 +93,41 @@ def build(name: str, text: str):
     return fn, ptxas
 
 
+def seed_sweep(ctx) -> int:
+    """Time the "approx" and "bins" seed routes over B and A (see --seeds)."""
+    from zvdb_tpu_torch.index import cagra
+    from zvdb_tpu_torch.ops import approx_topk as AK
+    from zvdb_tpu_torch.ops import distance as D
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    s_count = 16
+    for a in (250_000, 32_768, 8_192):
+        x = torch.randn(a, 128, device=dev, generator=g)
+        norms = D.sq_norms(x)
+        for precision in ("high", "default"):
+            for b in (16, 64, 128, 256, 512, 1024, 2048):
+                q = x[:b] + 0.5 * torch.randn(b, 128, device=dev, generator=g)
+
+                def approx():
+                    return AK.approx_min_k(D.pairwise_scores(q, x, norms, "l2",
+                                                             precision=precision), s_count)
+
+                def bins():
+                    return cagra._binned_seeds(q, x, norms, s_count, "l2", precision)
+
+                (sa, ca), (sb, cb) = approx(), bins()
+                same = (ca.to(torch.int32) == cb).float().mean().item()
+                gap = (sa - sb).abs().max().item()
+                ms_a = ctx.time_ms(approx, reps=20, warmup=2)
+                ms_b = ctx.time_ms(bins, reps=20, warmup=2)
+                ctx.report(f"seeds A={a} B={b} {precision} ms approx / bins",
+                           f"{ms_a:.4f} / {ms_b:.4f} (bins/approx {ms_b / ms_a:.3f}; equal "
+                           f"seeds {same:.4f}, largest score gap {gap:.3g})")
+        del x, norms
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flat_tile_sweep: no CUDA device", file=sys.stderr)
@@ -91,9 +136,11 @@ def main() -> int:
     from zvdb_tpu_torch.ops import distance as D
     from zvdb_tpu_torch.ops import flat_scan as FS
 
-    specs = dict(v.split("=") for v in (sys.argv[1:] or VARIANTS))
     ctx = CS.Ctx(False)
     CS.phase_device(ctx)
+    if sys.argv[1:] == ["--seeds"]:
+        return seed_sweep(ctx)
+    specs = dict(v.split("=") for v in (sys.argv[1:] or VARIANTS))
     with open(os.path.join(ROOT, "zvdb_tpu_torch", "csrc", "flat_scan_mma.cu")) as f:
         src = f.read()
     with ThreadPoolExecutor(len(specs) + 1) as pool:

@@ -6,7 +6,9 @@
   * Anchor seeding: a random sample of corpus rows is kept as a dense [A, D]
     anchor table; one [B, A] product ranks all anchors per query and the
     beam (index/hnsw.py:beam_layer_fn) starts at the best `n_seeds` anchor
-    rows, inside the answer's neighborhood.
+    rows, inside the answer's neighborhood. On the card a large batch folds
+    the table into approx_min_k's bins with kernel A instead, so the [B, A]
+    scores never reach device memory (`seed_route`).
   * For l2 + f32 storage the beam scores rows from a packed [N, D+1] table
     (vector | squared norm), one row gather per candidate.
 
@@ -35,6 +37,7 @@ import torch
 
 from ..ops import approx_topk as AK
 from ..ops import distance as D
+from ..ops import flat_scan as FS
 from ..ops import topk as T
 from ..utils.filter_policy import resolve_filter_mode
 from ..utils.masks import allowed_mask
@@ -156,12 +159,18 @@ class _SearchArrays:
     dead: Optional[torch.Tensor] = None
 
 
-def _pick_anchor_rows(gen: torch.Generator, n: int, n_anchors: int, device) -> torch.Tensor:
-    """Random anchor rows without replacement: auto-size ~n/12,
-    pow2-clamped to [1024, 32768]; all rows when that is n or more."""
+def anchor_count(n: int, n_anchors: int) -> int:
+    """The anchor rows of an index of n rows: n_anchors, or auto-size ~n/12
+    pow2-clamped to [1024, 32768] when n_anchors <= 0; n at most."""
     if n_anchors <= 0:
         n_anchors = 1 << max(10, min(15, int(math.ceil(math.log2(max(n, 2) / 12.0)))))
-    a = min(n_anchors, max(n, 1))
+    return min(n_anchors, max(n, 1))
+
+
+def _pick_anchor_rows(gen: torch.Generator, n: int, n_anchors: int, device) -> torch.Tensor:
+    """Random anchor rows without replacement (`anchor_count` of them); all
+    rows when that is n or more."""
+    a = anchor_count(n, n_anchors)
     if a >= n:
         return torch.arange(n, dtype=torch.int32, device=device)
     rows = torch.randperm(n, generator=gen)[:a].to(torch.int32)
@@ -236,6 +245,57 @@ def _make_scorer(arrs: _SearchArrays, qp: torch.Tensor, metric: str, packed: boo
     return score_rows
 
 
+# Kernel A's route to the seed anchors (`_binned_seeds`) is taken from this
+# many queries a batch up, by precision; below it the [B, A] product and
+# approx_min_k's kernel over it are faster. Timed on an H100 80GB HBM3 at
+# 700 W (flat_tile_sweep.py --seeds; n_seeds 16, D 128, 20 calls each), ms a
+# call of the [B, A] route / of kernel A's:
+#   A = 250,000 "high":    B=128 1.653 / 1.757, 256 2.768 / 1.755, 2048 18.90 / 1.80
+#   A = 250,000 "default": B=256 1.084 / 1.591, 512 1.966 / 1.602, 2048 7.337 / 1.662
+#   A = 32,768 "high":     B=64 0.211 / 0.256, 128 0.303 / 0.259, 256 0.410 / 0.256
+#   A = 32,768 "default":  B=256 0.175 / 0.251, 512 0.293 / 0.251
+#   A = 8,192: kernel A's from B = 16 up (0.09-0.16 against 0.10-0.69)
+# Kernel A's time hardly moves with B (each block walks all A / L steps) while
+# the [B, A] route's grows with B x A, so the crossing B holds for large A; a
+# small table crosses lower, at a tenth of a millisecond a call.
+SEED_BINS_MIN_QUERIES = {"high": 256, "default": 512}
+
+
+def seed_route(b: int, a: int, n_seeds: int, seed_approx: bool, precision: str,
+               cuda: bool) -> str:
+    """How a search of b queries selects its seeds among a anchor rows:
+    "exact" (the exact top-k of the [B, A] anchor scores: seed_approx off,
+    or no more than 4 * n_seeds anchors), "approx" (approx_min_k over the
+    [B, A] scores) or "bins" (the same selection by `_binned_seeds`: CUDA
+    tensors at a tensor-core precision, from SEED_BINS_MIN_QUERIES[precision]
+    queries up)."""
+    if not (seed_approx and a > 4 * min(n_seeds, a)):
+        return "exact"
+    if cuda and b >= SEED_BINS_MIN_QUERIES.get(precision, math.inf):
+        return "bins"
+    return "approx"
+
+
+def _binned_seeds(qp: torch.Tensor, anchors: torch.Tensor, a_norms: torch.Tensor, s_count: int,
+                  metric: str, precision: str):
+    """approx_min_k's selection of the s_count best anchors, with the [B, A]
+    scores never in device memory: kernel A (ops/flat_scan.py:flat_scan_bins)
+    folds the anchor table into the L bins approx_min_k would fold the
+    [B, A] row into (anchor c to bin c % L, the lower anchor keeping a tie),
+    and approx_min_k at recall_target 1.0 then selects the s_count best
+    bins exactly: its L over L bins is L itself, for s_count 1 too, whose L
+    is 128 (one launch of its kernel on a CUDA tensor).
+
+    Returns (scores [B, S] f32, anchor columns [B, S] int32); a bin that saw
+    no finite score gives column -1 and score +inf. Exactly equal scores in
+    different bins come in bin order, not anchor order."""
+    l_bins = AK.reduction_output_size(anchors.shape[0], 2, s_count, 0.95)
+    bin_s, bin_i = FS.flat_scan_bins(qp, anchors, a_norms, l_bins=l_bins, chunk=l_bins,
+                                     metric=metric, precision=precision)
+    seed_s, pos = AK.approx_min_k(bin_s, s_count, recall_target=1.0)
+    return seed_s, bin_i.gather(1, pos)
+
+
 def cagra_search_impl(
     arrs: _SearchArrays,
     q: torch.Tensor,
@@ -255,21 +315,31 @@ def cagra_search_impl(
     """Returns (user_scores [B, k], ids [B, k]); ids are row ids (insertion
     order: the graph never reorders rows). With seed_approx and more than
     4 * n_seeds anchors, the seeds are selected by approx_min_k, as in JAX;
-    else they are the exact n_seeds best anchors. Spans (utils.profiling):
-    "cagra.seeds", beam_layer_fn's "beam.init" and "beam.hop", "cagra.final"."""
+    else they are the exact n_seeds best anchors. `seed_route` names the
+    route: on the card a large batch at "high" or "default" takes kernel A's
+    bins (`_binned_seeds`), the same selection up to the order of each
+    product's sums. Spans (utils.profiling): "cagra.seeds", beam_layer_fn's
+    "beam.init" and "beam.hop", "cagra.final"."""
     qp = D.preprocess_queries(q, metric)
     efk = max(ef, k)
     with span("cagra.seeds"):
-        # seeds: one [B, A] product over the dense anchor table; the anchor
-        # scores ARE the seed scores (anchors hold the stored vectors exactly)
-        cs = D.pairwise_scores(qp, arrs.anchors, arrs.a_norms, metric, precision=precision)
-        s_count = min(n_seeds, arrs.anchors.shape[0])
-        if seed_approx and arrs.anchors.shape[0] > 4 * s_count:
-            seed_s, top = AK.approx_min_k(cs, s_count)
+        a = arrs.anchors.shape[0]
+        s_count = min(n_seeds, a)
+        route = seed_route(qp.shape[0], a, n_seeds, seed_approx, precision, qp.is_cuda)
+        if route == "bins":
+            seed_s, cols = _binned_seeds(qp, arrs.anchors, arrs.a_norms, s_count, metric,
+                                         precision)
+            seeds = torch.where(cols >= 0, arrs.a_rows[cols.clamp(min=0).long()], -1)
         else:
-            seed_s, top = T.smallest_k_dense(cs, s_count)
-        del cs
-        seeds = arrs.a_rows[top]
+            # seeds: one [B, A] product over the dense anchor table; the anchor
+            # scores ARE the seed scores (anchors hold the stored vectors exactly)
+            cs = D.pairwise_scores(qp, arrs.anchors, arrs.a_norms, metric, precision=precision)
+            if route == "approx":
+                seed_s, top = AK.approx_min_k(cs, s_count)
+            else:
+                seed_s, top = T.smallest_k_dense(cs, s_count)
+            del cs
+            seeds = arrs.a_rows[top]
     if fat:
         expander = _make_fat_expander(arrs, qp, metric, arrs.nbrs.shape[-1], precision)
         beam_s, beam_r = beam_layer_fn(None, seeds, seed_s, arrs.nbrs, efk, expand=expand,
